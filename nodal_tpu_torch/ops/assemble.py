@@ -1,0 +1,110 @@
+"""MNA system assembly from the stamp tensors, batched over a leading B.
+
+Counterpart of ``nodal_tpu/ops/assemble.py``.  Only the values depend on the
+parameters; the index tables are host numpy, copied to the device once per
+topology (:func:`nodal_tpu_torch.models.stamps.device_table`).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from nodal_tpu_torch.models.stamps import (StampTensors, device_table,
+                                           stamp_values)
+
+
+def _as_params(params: torch.Tensor, dtype) -> torch.Tensor:
+    return params if dtype is None else params.to(dtype)
+
+
+def assemble_dense(stamps: StampTensors, params: torch.Tensor, dtype=None):
+    """Dense MNA systems ``(G [B, n, n], b [B, n])`` for ``[B, n_components]``
+    params, by one scatter-add per batch.  Used only by the pivoted rescue
+    of the contract layer.
+    """
+    params = _as_params(params, dtype)
+    g_vals, rhs_vals = stamp_values(stamps, params)
+    n = stamps.n
+    B = params.shape[0]
+    dev, dt = params.device, params.dtype
+    flat = device_table(stamps, "g_flat",
+                        stamps.g_rows.astype(np.int64) * n + stamps.g_cols,
+                        dev, torch.long)
+    G = torch.zeros(B, n * n, dtype=dt, device=dev)
+    G.index_add_(1, flat, g_vals)
+    G = G.view(B, n, n)
+    b = torch.zeros(B, n, dtype=dt, device=dev)
+    b.index_add_(1, device_table(stamps, "rhs_rows", stamps.rhs_rows, dev,
+                                 torch.long), rhs_vals)
+    return G, b
+
+
+def bandwidth(stamps: StampTensors) -> int:
+    """Matrix bandwidth of the stamp template in natural node order.
+
+    1 means tridiagonal (chain/ladder topologies), enabling the PCR tier."""
+    if len(stamps.g_rows) == 0:
+        return 0
+    return int(np.max(np.abs(stamps.g_rows.astype(np.int64) - stamps.g_cols)))
+
+
+def _gather_plan(rows: np.ndarray, entry_idx: np.ndarray, n: int):
+    """Turn a scatter (``out[rows[e]] += vals[entry_idx[e]]``) into a dense
+    gather: per-row padded entry-index matrix [n, K] + 0/1 mask, K the most
+    entries landing on one row (2 for ladder diagonals)."""
+    order = np.argsort(rows, kind="stable")
+    rows_sorted = rows[order]
+    entries_sorted = entry_idx[order]
+    counts = np.bincount(rows_sorted, minlength=n)
+    K = int(counts.max()) if len(counts) else 1
+    idx = np.zeros((n, K), dtype=np.int32)
+    mask = np.zeros((n, K), dtype=np.float64)
+    slot = np.zeros(n, dtype=np.int64)
+    for r, e in zip(rows_sorted, entries_sorted):
+        idx[r, slot[r]] = e
+        mask[r, slot[r]] = 1.0
+        slot[r] += 1
+    return idx, mask
+
+
+def _band_gather_plans(stamps: StampTensors):
+    """Host-side: per-band and RHS gather plans, cached on the stamps."""
+    cached = stamps.__dict__.get("_band_gather")
+    if cached is None:
+        off = stamps.g_rows.astype(np.int64) - stamps.g_cols
+        n = stamps.n
+        plans = {}
+        for o in (-1, 0, 1):
+            e = np.nonzero(off == o)[0].astype(np.int32)
+            plans[o] = _gather_plan(stamps.g_rows[e], e, n)
+        plans["rhs"] = _gather_plan(
+            stamps.rhs_rows, np.arange(len(stamps.rhs_rows), dtype=np.int32), n
+        )
+        stamps.__dict__["_band_gather"] = cached = plans
+    return cached
+
+
+def assemble_tridiag(stamps: StampTensors, params: torch.Tensor, dtype=None):
+    """The three bands and the RHS ``(dl, d, du, b)``, each ``[..., n]``, for
+    ``[..., n_components]`` params; no dense G at all.
+
+    Valid when ``bandwidth(stamps) <= 1``.  Each band is a gather-fold of
+    the stamp values (``(vals[..., idx] * mask).sum(-1)``), not a scatter.
+    """
+    params = _as_params(params, dtype)
+    g_vals, rhs_vals = stamp_values(stamps, params)
+    plans = _band_gather_plans(stamps)
+    dev, dt = params.device, params.dtype
+
+    def fold(vals, key):
+        idx, mask = plans[key]
+        i = device_table(stamps, f"band{key}_idx", idx, dev, torch.long)
+        w = device_table(stamps, f"band{key}_mask", mask, dev, dt)
+        return (vals[..., i] * w).sum(-1)
+
+    dl = fold(g_vals, 1)  # G[i, i-1]
+    d = fold(g_vals, 0)
+    du = fold(g_vals, -1)  # G[i, i+1]
+    b = fold(rhs_vals, "rhs")
+    return dl, d, du, b
