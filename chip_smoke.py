@@ -3,11 +3,18 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``nodal_tpu_torch/csrc``, holds each kernel
-against its plain PyTorch version on the card, then drives the main path
-once — the 1000-node ladder through ``BatchedSolver(refine="auto")`` on a
-batch of 16384 parameter vectors — and checks its answers against the f64
-audit and a numpy f64 dense solve.  Every phase asserts; any failure exits
-non-zero.  The last line is ``{"ok": true, "device": {...}}``.
+against its plain PyTorch version on the card, then drives each main path
+once through ``BatchedSolver(refine="auto")`` and checks its answers
+against the f64 audit and a numpy f64 dense solve:
+
+* the 1000-node ladder (``tridiag`` tier, PCR kernel), B = 16384;
+* the 25×40 resistor mesh (``sband`` tier, scalar-band kernel), B = 16384;
+* the 25×200 and 25×400 meshes (``sband``), B = 256;
+* the 25×40 mesh driven by a voltage source plus a VCCS (``schur`` tier,
+  the scalar-band kernel with 3 right-hand sides), B = 16384.
+
+Every phase asserts; any failure exits non-zero.  The last line is
+``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when CUDA is unavailable or when the
 ``nodal_tpu_torch`` package is not beside this script.  Imports no JAX.
@@ -34,6 +41,32 @@ CONTRACT_TOL = 1e-6         # node-voltage contract of refine="auto"
 KERNEL_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 KERNEL_SHAPES = [(n, b) for n in (1, 2, 3, 1000, 1024, 2048, 4097)
                  for b in (1, 7, BATCH)] + [(20000, 8)]
+
+MESH_ROWS = 25              # the JAX package bench's meshes are 25 rows tall
+MESH_NODES = 1000
+MIDSIZE_NODES = (5000, 10000)
+MIDSIZE_BATCH = 256         # bench.py --midsize-batch default
+# The scalar-band kernel and its plain version run the same no-pivot
+# recurrence on diagonally dominant bands, rounded differently (fused
+# multiply-adds, the warp's reduction order).  The rounding differences
+# stay near the unit roundoff times the modest growth along up to 16384
+# rows: 1e-4 in f32 (ε ≈ 1.2e-7) and 1e-10 in f64 (ε ≈ 2.2e-16) leave
+# two to three orders of margin above the observed differences.
+SBAND_RTOL = {torch.float32: 1e-4, torch.float64: 1e-10}
+# (B, n, w, n_rhs): each w in {1, 8, 26, 56}, each n in {1, 8, 999, 5000,
+# 16384}, n_rhs in {1, 3, the widest with W1 + n_rhs = 128}; B in
+# {1, 7, 256} (B <= 7 at n = 16384), and the mesh and branch batches.  The
+# last three sit at the edge between the kernel's register variant
+# (W1 + n_rhs <= 32) and its shared-memory variant.
+SBAND_SHAPES = [
+    (1, 1, 1, 1), (7, 1, 56, 3), (256, 8, 8, 1), (7, 8, 1, 126),
+    (256, 999, 26, 1), (256, 999, 26, 3), (7, 999, 56, 71),
+    (1, 999, 8, 119), (BATCH, 999, 26, 1), (BATCH, 1000, 26, 3),
+    (256, 5000, 26, 1), (7, 5000, 8, 3), (1, 5000, 1, 1),
+    (256, 5000, 56, 3), (7, 16384, 26, 3), (1, 16384, 56, 71),
+    (7, 16384, 1, 126), (7, 999, 30, 1), (7, 999, 31, 1), (7, 999, 3, 28),
+]
+SBAND_TIME_SHAPES = [(BATCH, 999, 26, 1), (MIDSIZE_BATCH, 4999, 26, 1)]
 
 
 def fail(msg: str) -> None:
@@ -131,79 +164,207 @@ def phase_kernels(pcr, tridiag):
     return worst, timing
 
 
-def ladder_params(circuit):
+def random_sband(B: int, n: int, w: int, n_rhs: int, dtype, gen):
+    """Diagonally dominant symmetric bands ``U`` [B, n, w+1] (couplings
+    past the last row zero, as plans give) and right-hand sides ``R``
+    [B, n, n_rhs]."""
+    W1 = w + 1
+    U = -(0.1 + 0.9 * torch.rand(B, n, W1, generator=gen, device="cuda",
+                                 dtype=torch.float64))
+    row = torch.arange(n, device="cuda")[:, None]
+    U = U * ((row + torch.arange(W1, device="cuda")) < n)
+    diag = U[:, :, 1:].abs().sum(-1)
+    for k in range(1, min(W1, n)):
+        diag[:, k:] += U[:, :-k, k].abs()
+    U[:, :, 0] = diag + 0.1 + 0.9 * torch.rand(
+        B, n, generator=gen, device="cuda", dtype=torch.float64)
+    R = torch.randn(B, n, n_rhs, generator=gen, device="cuda",
+                    dtype=torch.float64)
+    return U.to(dtype).contiguous(), R.to(dtype).contiguous()
+
+
+def phase_sband_kernel(sband, scalar_band):
+    """Scalar-band kernel vs the plain torch solver on the same CUDA
+    tensors, then both timed at the mesh and midsize shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    worst = {}
+    for dtype in (torch.float32, torch.float64):
+        for B, n, w, n_rhs in SBAND_SHAPES:
+            U, R = random_sband(B, n, w, n_rhs, dtype, gen)
+            got = sband.sband_solve_multi(U, R)
+            torch.cuda.synchronize()
+            want = scalar_band.scalar_band_solve_scan(U, R)
+            check(got.dtype == dtype and got.shape == R.shape,
+                  f"sband_solve_multi returned {got.dtype} "
+                  f"{tuple(got.shape)}")
+            check(bool(torch.isfinite(got).all()),
+                  f"sband_solve_multi non-finite at {(B, n, w, n_rhs)}")
+            err = rel_diff(got.reshape(B, -1), want.reshape(B, -1))
+            emit({"phase": "kernel_check", "kernel": "sband_solve", "B": B,
+                  "n": n, "w": w, "n_rhs": n_rhs, "dtype": str(dtype),
+                  "max_rel_diff": err, "tol": SBAND_RTOL[dtype]})
+            check(err <= SBAND_RTOL[dtype],
+                  f"sband_solve_multi differs from the plain solver by "
+                  f"{err:.3e} at {(B, n, w, n_rhs)} {dtype}")
+            worst[dtype] = max(worst.get(dtype, 0.0), err)
+            del U, R, got, want
+
+    timing = {}
+    for B, n, w, n_rhs in SBAND_TIME_SHAPES:
+        for dtype in (torch.float32, torch.float64):
+            U, R = random_sband(B, n, w, n_rhs, dtype, gen)
+            got = sband.sband_solve_multi(U, R)
+            want = scalar_band.scalar_band_solve_scan(U, R)
+            max_abs = float((got - want).abs().max())
+            # Alternate plain, kernel, kernel, plain; the plain solver
+            # steps through the rows in Python, so it gets few reps.
+            p1 = cuda_ms(lambda: scalar_band.scalar_band_solve_scan(U, R),
+                         reps=2, warmup=1)
+            k1 = cuda_ms(lambda: sband.sband_solve_multi(U, R))
+            k2 = cuda_ms(lambda: sband.sband_solve_multi(U, R))
+            p2 = cuda_ms(lambda: scalar_band.scalar_band_solve_scan(U, R),
+                         reps=2, warmup=1)
+            timing[(B, n, dtype)] = {"ms": min(k1, k2),
+                                     "plain_ms": min(p1, p2),
+                                     "max_abs_err": max_abs}
+            emit({"phase": "kernel_time", "kernel": "sband_solve", "B": B,
+                  "n": n, "w": w, "n_rhs": n_rhs, "dtype": str(dtype),
+                  "kernel_ms": [k1, k2], "plain_ms": [p1, p2],
+                  "max_abs_err": max_abs})
+            del U, R, got, want
+    return worst, timing
+
+
+def sweep_params(circuit, batch: int = BATCH):
     """The sweep batch, made as the JAX package's bench makes it."""
     rng = np.random.default_rng(0)
     base = circuit.stamps.params.astype(np.float32)
     return (base * (1.0 + SWEEP_SIGMA * rng.standard_normal(
-        (BATCH, len(base))))).astype(np.float32)
+        (batch, len(base))))).astype(np.float32)
 
 
-def phase_main_path(pcr):
-    from nodal_tpu_torch import BatchedSolver, Circuit, Netlist
-    from nodal_tpu_torch.ops.assemble import assemble_dense
-    from nodal_tpu_torch.utils.gridgen import ladder_rows
+def mesh_rows(n_nodes: int, branch: bool = False):
+    """The JAX package bench's mesh circuit (``_mesh_circuit``), or with
+    ``branch`` its branch circuit (``_branch_circuit``): the mesh driven by
+    a voltage source, plus a VCCS."""
+    from nodal_tpu_torch.utils.gridgen import grid_rows
 
-    t0 = time.perf_counter()
-    circuit = Circuit(Netlist.from_rows(ladder_rows(LADDER_RUNGS)))
-    solver = BatchedSolver(circuit, dtype=torch.float32, refine="auto",
-                           device="cuda")
-    params_np = ladder_params(circuit)
-    params = torch.as_tensor(params_np, device="cuda")
-    setup_s = time.perf_counter() - t0
-    check(solver.method == "tridiag", f"method is {solver.method}")
+    h = MESH_ROWS
+    w = (n_nodes + h - 1) // h
+    rows = list(grid_rows(h, w, (0, 0), (h - 1, w - 1)))
+    if branch:
+        return rows + [["e1", "E", "2", "1", "g"],
+                       ["d1", "VCCS", "0.5", "n3_3", "g", "1", "g"]]
+    return rows + [["src", "A", "1", "1", "g"]]
 
-    pcr.pcr_solve.launches = 0
-    xs = solver(params)
+
+def median_call_ms(solver, params, reps: int = 5):
+    """Per-call device times (CUDA events) of ``solver(params)`` after one
+    warm-up call, and their median."""
+    solver(params)
     torch.cuda.synchronize()
-    launches = pcr.pcr_solve.launches
-    check(launches > 0, "the main path never launched the PCR kernel")
-    check(xs.device.type == "cuda" and xs.dtype == torch.float64,
-          f"output is {xs.dtype} on {xs.device}")
-    check(xs.shape == (BATCH, circuit.stamps.n), f"shape {tuple(xs.shape)}")
-    check(bool(torch.isfinite(xs).all()), "non-finite node voltages")
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        solver(params)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return times, statistics.median(times)
 
-    res = solver.residuals(params, xs)
-    check(res.device.type == "cuda" and res.dtype == torch.float64,
-          "the audit left the card or f64")
-    max_res = float(res.max())
-    check(max_res <= CONTRACT_TOL, f"full-batch residual {max_res:.3e}")
+
+def sample0_error(circuit, params_np, xs) -> float:
+    """Relative distance of sample 0 from a numpy f64 dense solve."""
+    from nodal_tpu_torch.ops.assemble import assemble_dense
 
     G, b = assemble_dense(circuit.stamps,
                           torch.as_tensor(params_np[:1], dtype=torch.float64))
     ref = np.linalg.solve(G[0].numpy(), b[0].numpy())
+    del G
     x0 = xs[0].cpu().numpy()
-    err0 = float(np.abs(x0 - ref).max() / np.abs(ref).max())
-    check(err0 <= CONTRACT_TOL, f"sample 0 is {err0:.3e} from f64 dense")
+    return float(np.abs(x0 - ref).max() / np.abs(ref).max())
+
+
+def phase_path(label, rows, batch, method, kernel, rate_refines,
+               extra_check=None):
+    """Drive one main path through ``BatchedSolver(refine="auto")``: count
+    ``kernel``'s launches over exactly that call, check the answers, then
+    time the ``rate_refines`` tiers.  Returns the launch count."""
+    from nodal_tpu_torch import BatchedSolver, Circuit, Netlist
+    from nodal_tpu_torch.ops import pcr, sband
+
+    t0 = time.perf_counter()
+    circuit = Circuit(Netlist.from_rows(rows))
+    solver = BatchedSolver(circuit, dtype=torch.float32, refine="auto",
+                           device="cuda")
+    params_np = sweep_params(circuit, batch)
+    params = torch.as_tensor(params_np, device="cuda")
+    setup_s = time.perf_counter() - t0
+    check(solver.method == method,
+          f"{label}: method is {solver.method}, expected {method}")
+
+    pcr.pcr_solve.launches = 0
+    sband.sband_solve_multi.launches = 0
+    sband.sband_solve_multi.last_shape = None
+    xs = solver(params)
+    torch.cuda.synchronize()
+    launches = kernel.launches
+    check(launches > 0, f"{label}: the main path never launched its kernel")
+    check(xs.device.type == "cuda" and xs.dtype == torch.float64,
+          f"{label}: output is {xs.dtype} on {xs.device}")
+    check(xs.shape == (batch, circuit.stamps.n),
+          f"{label}: shape {tuple(xs.shape)}")
+    check(bool(torch.isfinite(xs).all()), f"{label}: non-finite solutions")
+    info = extra_check(circuit, xs) if extra_check else {}
+
+    res = solver.residuals(params, xs)
+    check(res.device.type == "cuda" and res.dtype == torch.float64,
+          f"{label}: the audit left the card or f64")
+    max_res = float(res.max())
+    check(max_res <= CONTRACT_TOL,
+          f"{label}: full-batch residual {max_res:.3e}")
+    err0 = sample0_error(circuit, params_np, xs)
+    check(err0 <= CONTRACT_TOL,
+          f"{label}: sample 0 is {err0:.3e} from f64 dense")
+    del xs, res
 
     rates = {}
-    for refine in ("auto", False):
+    for refine in rate_refines:
         s = circuit.batched_solver(dtype=torch.float32, refine=refine,
                                    device="cuda")
-        s(params)
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(5):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            s(params)
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        ms = statistics.median(times)
-        rates[str(refine)] = BATCH / (ms / 1e3)
-        emit({"phase": "main_path_time", "refine": refine, "B": BATCH,
-              "n": circuit.stamps.n, "ms_reps": times, "median_ms": ms,
-              "solves_per_s": rates[str(refine)]})
+        times, ms = median_call_ms(s, params)
+        rates[str(refine)] = batch / (ms / 1e3)
+        emit({"phase": "main_path_time", "path": label, "refine": refine,
+              "B": batch, "n": circuit.stamps.n, "ms_reps": times,
+              "median_ms": ms, "solves_per_s": rates[str(refine)]})
 
-    emit({"phase": "main_path", "circuit": f"ladder_rows({LADDER_RUNGS})",
-          "n": circuit.stamps.n, "nnz": circuit.stamps.nnz, "B": BATCH,
-          "method": solver.method, "setup_s": setup_s,
-          "pcr_launches": launches, "max_residual": max_res,
+    emit({"phase": "main_path", "path": label, "n": circuit.stamps.n,
+          "nnz": circuit.stamps.nnz, "B": batch, "method": solver.method,
+          "setup_s": setup_s, "launches": launches, "max_residual": max_res,
           "sample0_rel_err_vs_f64": err0,
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, **info})
     return launches
+
+
+def branch_check(circuit, xs):
+    """The branch path's extra checks: the kernel took the 3 right-hand
+    sides of the schur tier, branch currents are finite, TF32 is off."""
+    from nodal_tpu_torch.batch import BatchResult
+    from nodal_tpu_torch.ops import sband
+
+    shape = sband.sband_solve_multi.last_shape
+    check(shape is not None and shape[3] == 3,
+          f"branch: the kernel's last launch had shape {shape}, "
+          "expected 3 right-hand sides")
+    current = BatchResult(xs, circuit.netlist).current("e1")
+    check(bool(torch.isfinite(current).all()),
+          "branch: non-finite current through e1")
+    check(torch.backends.cuda.matmul.allow_tf32 is False,
+          "TF32 matmuls are on: the Schur algebra needs full f32")
+    return {"kernel_shape": list(shape),
+            "e1_current_sample0": float(current[0])}
 
 
 def main() -> None:
@@ -212,8 +373,9 @@ def main() -> None:
     sys.path.insert(0, str(ROOT))
     try:
         import nodal_tpu_torch
-        from nodal_tpu_torch.ops import pcr, tridiag
+        from nodal_tpu_torch.ops import pcr, sband, scalar_band, tridiag
         from nodal_tpu_torch.utils import kernels
+        from nodal_tpu_torch.utils.gridgen import ladder_rows
     except ImportError as e:
         fail(f"nodal_tpu_torch is not importable beside this script ({e})")
     pkg = Path(nodal_tpu_torch.__file__).resolve().parent
@@ -236,15 +398,36 @@ def main() -> None:
           "seconds": time.perf_counter() - t0})
 
     worst, timing = phase_kernels(pcr, tridiag)
-    launches = phase_main_path(pcr)
+    sb_worst, sb_timing = phase_sband_kernel(sband, scalar_band)
+    emit({"phase": "kernel_check_worst",
+          "pcr_solve": {str(k): v for k, v in worst.items()},
+          "sband_solve": {str(k): v for k, v in sb_worst.items()}})
+    launches = phase_path("ladder", ladder_rows(LADDER_RUNGS), BATCH,
+                          "tridiag", pcr.pcr_solve, ("auto", False))
+    sb_launches = phase_path("mesh", mesh_rows(MESH_NODES), BATCH, "sband",
+                             sband.sband_solve_multi, ("auto", False))
+    for n_nodes in MIDSIZE_NODES:
+        sb_launches += phase_path(f"midsize{n_nodes}", mesh_rows(n_nodes),
+                                  MIDSIZE_BATCH, "sband",
+                                  sband.sband_solve_multi, ("auto",))
+    sb_launches += phase_path("branch", mesh_rows(MESH_NODES, branch=True),
+                              BATCH, "schur", sband.sband_solve_multi,
+                              ("auto", False), branch_check)
 
     t32 = timing[torch.float32]
+    s32 = sb_timing[(BATCH, 999, torch.float32)]
     emit({"kernels": [{
         "name": "pcr_solve", "route": "cuda",
         "source": "nodal_tpu_torch/csrc/pcr.cu",
         "replaces": "nodal_tpu/ops/pallas_tridiag.py:74",
         "launches": launches, "max_abs_err": t32["max_abs_err"],
-        "ms": t32["ms"], "plain_ms": t32["plain_ms"]}]})
+        "ms": t32["ms"], "plain_ms": t32["plain_ms"]}, {
+        "name": "sband_solve", "route": "cuda",
+        "source": "nodal_tpu_torch/csrc/sband.cu",
+        "replaces": "nodal_tpu/ops/pallas_scalar_band.py:152 and "
+                    "nodal_tpu/ops/pallas_scalar_band.py:305",
+        "launches": sb_launches, "max_abs_err": s32["max_abs_err"],
+        "ms": s32["ms"], "plain_ms": s32["plain_ms"]}]})
     check("jax" not in sys.modules, "jax was imported")
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -9,9 +9,14 @@ is the batch (the JAX package's ``vmap``).  Typical use:
     xs = solver(params_batch)                          # [B, n] solutions
 
 Ported so far: the ``tridiag`` tier (chain and ladder topologies: band
-assembly, then the CUDA PCR kernel of :mod:`nodal_tpu_torch.ops.pcr`) and
-the exact-f64 defect-correction contract layer that ``refine="auto"`` wraps
-around it.  Every other tier, and the adjoint, Monte Carlo and
+assembly, then the CUDA PCR kernel of :mod:`nodal_tpu_torch.ops.pcr`), the
+``sband`` tier (narrow-band resistive circuits such as 2-D meshes: scalar
+band assembly, then the CUDA scalar-band LDLᵀ kernel of
+:mod:`nodal_tpu_torch.ops.sband`), the ``schur`` tier's narrow-node-block
+branch (branch-equation circuits whose node block is a narrow band: the
+same kernel with the border columns as extra right-hand sides), and the
+exact-f64 defect-correction contract layer that ``refine="auto"`` wraps
+around each.  Every other tier, and the adjoint, Monte Carlo and
 sensitivities, raise ``NotImplementedError`` or are absent (ROADMAP.md
 Queue 1).
 
@@ -30,11 +35,15 @@ import torch
 
 from nodal_tpu_torch.circuit import Circuit
 from nodal_tpu_torch.models.stamps import (StampTensors, device_table,
-                                           stamp_values)
+                                           stamp_values, stamp_values_np)
 from nodal_tpu_torch.ops import dense_solve
 from nodal_tpu_torch.ops.assemble import (assemble_dense, assemble_tridiag,
                                           bandwidth)
 from nodal_tpu_torch.ops.pcr import pcr_solve
+from nodal_tpu_torch.ops.sband import (sband_fits, sband_solve,
+                                       sband_solve_multi)
+from nodal_tpu_torch.ops.scalar_band import (MAX_W, gather_fold,
+                                             node_sband_plan, sband_plan)
 from nodal_tpu_torch.ops.tridiag import tridiag_matvec
 
 #: Rows with more COO entries than this keep the scatter-add audit (the
@@ -55,6 +64,15 @@ _ESCALATE_MAX_PASSES = 4
 #: this n the dense rescue is skipped and such samples keep their values.
 _ESCALATE_DENSE_MAX_N = 4096
 _ESCALATE_CHUNK_BYTES = 1 << 28
+
+#: Auto-selection refuses the dense tiers above this many unknowns (the
+#: JAX package's bound: a batch of [n, n] systems does not fit).
+_DENSE_BATCH_MAX_N = 16384
+
+#: The node-block SPD probe of the schur tier is a dense f64 Cholesky up to
+#: this many nodes; past it the JAX package probes with a banded Cholesky
+#: on its block-band plan, which is not ported yet.
+_SCHUR_DENSE_PROBE_MAX_NK = 8192
 
 _METHODS = ("auto", "tridiag", "sband", "band", "block", "schur", "dense")
 
@@ -149,6 +167,30 @@ def _coo_residuals(stamps: StampTensors, params_batch: torch.Tensor,
     y = _coo_apply(stamps, g_vals, xs)
     b = _coo_rhs_vec(stamps, rhs_vals, xs)
     return (b - y).abs().amax(dim=1) / b.abs().amax(dim=1).clamp_min(1.0)
+
+
+def _coo_defect_refine(stamps: StampTensors, params_batch: torch.Tensor,
+                       rhs, x: torch.Tensor, resolve,
+                       iters: int = 2) -> torch.Tensor:
+    """f64 defect correction against the *exact* COO operator.
+
+    ``x`` is the f32-tier solution (promoted to f64); ``rhs`` is an
+    explicit natural-order RHS or None for the stamped one; ``resolve``
+    maps an f32 natural-order residual to an f32 correction.  Refining
+    against the COO entries rather than the assembled, f32-rounded matrix
+    is what buys true f64 accuracy instead of a floor set by assembly
+    rounding.
+    """
+    g_vals, rhs_vals = stamp_values(stamps, params_batch.to(torch.float64))
+    x = x.to(torch.float64)
+    if rhs is None:
+        b64 = _coo_rhs_vec(stamps, rhs_vals, x)
+    else:
+        b64 = rhs.to(torch.float64)
+    for _ in range(iters):
+        r = b64 - _coo_apply(stamps, g_vals, x)
+        x = x + resolve(r.to(torch.float32)).to(torch.float64)
+    return x
 
 
 def _escalating_solver(stamps: StampTensors, inner, transpose: bool = False):
@@ -286,6 +328,146 @@ def _refined_tridiag_solver(stamps: StampTensors, iters: int = 2):
     return solve_batch
 
 
+def _sband_solver(stamps: StampTensors, splan, dtype, refine: bool):
+    """The ``sband`` tier's solve ``(pb, rhs=None) -> [B, n]``.
+
+    Raw: scalar-band assembly and the kernel in ``dtype`` (f64 runs the
+    kernel's f64 instantiation on the card).  ``refine``: f32 kernel
+    solves plus two exact-COO f64 defect passes, f64 out.
+    """
+    if not refine:
+
+        def solve_batch(params_batch, rhs=None):
+            U, b = splan.assemble(stamps, params_batch, dtype=dtype)
+            if rhs is not None:
+                b = splan.rhs_to_band(rhs, dtype)
+            return splan.unpermute(sband_solve(U, b))
+
+        return solve_batch
+
+    def solve_batch(params_batch, rhs=None):
+        U, b = splan.assemble(stamps, params_batch, dtype=torch.float32)
+        if rhs is not None:
+            b = splan.rhs_to_band(rhs, torch.float32)
+        x = splan.unpermute(sband_solve(U, b))
+        return _coo_defect_refine(
+            stamps, params_batch, rhs, x,
+            lambda r: splan.unpermute(
+                sband_solve(U, splan.rhs_to_band(r, torch.float32))))
+
+    return solve_batch
+
+
+def _schur_supported(stamps: StampTensors) -> bool:
+    """Host-side probe: is the resistive node block A = G[:nk, :nk] SPD?
+
+    Only resistor stamps land in A, so SPD-ness means every node is
+    resistively tied to ground directly or transitively; a node held only
+    by voltage sources makes A singular.  A dense f64 Cholesky at the
+    netlist's default parameters, cached on the stamps; a barely positive
+    pivot (below 1e-6 of the largest) counts as a failure, since the f32
+    no-pivot kernel would blow up on it.
+    """
+    cached = stamps.__dict__.get("_schur_ok")
+    if cached is not None:
+        return cached
+    nk = stamps.n_kcl
+    if nk > _SCHUR_DENSE_PROBE_MAX_NK and stamps.n > nk:
+        raise _not_ported(
+            f"the schur tier's SPD probe for node blocks past "
+            f"{_SCHUR_DENSE_PROBE_MAX_NK} nodes (this one has {nk}; the JAX "
+            "package probes those with a banded Cholesky on its block-band "
+            "plan)")
+    ok = False
+    if 0 < nk and stamps.n > nk:
+        mask = (stamps.g_rows < nk) & (stamps.g_cols < nk)
+        g_np, _ = stamp_values_np(stamps, stamps.params)
+        A = np.zeros((nk, nk))
+        np.add.at(A, (stamps.g_rows[mask], stamps.g_cols[mask]), g_np[mask])
+        try:
+            L = np.linalg.cholesky(A)
+            ok = bool(np.min(np.diag(L)) > 1e-6 * np.max(np.diag(L)))
+        except np.linalg.LinAlgError:
+            ok = False
+    stamps.__dict__["_schur_ok"] = ok
+    return ok
+
+
+def _schur_band_assembler(stamps: StampTensors, dtype, bplan):
+    """``blocks(pb) -> (W, Bm, C, D, bk, bb)``: the MNA 2×2 partition with
+    the resistive node block in band storage.
+
+    W [B, n_pad, W1] and bk [B, n_pad] come from the node block's plan
+    ``bplan``; the border blocks Bm [B, n_pad, kbe], C [B, kbe, n_pad],
+    D [B, kbe, kbe] and bb [B, kbe] are gather-folds of the stamp values,
+    with Bm's rows and C's columns in the plan's order so only the final
+    node voltages need un-permuting.
+    """
+    nk = stamps.n_kcl
+    kbe = stamps.n - nk
+    gr = stamps.g_rows.astype(np.int64)
+    gc = stamps.g_cols.astype(np.int64)
+    rank = bplan.rank
+    n_pad = bplan.n_pad
+    iB = np.nonzero((gr < nk) & (gc >= nk))[0]
+    iC = np.nonzero((gr >= nk) & (gc < nk))[0]
+    iD = np.nonzero((gr >= nk) & (gc >= nk))[0]
+    rr = stamps.rhs_rows.astype(np.int64)
+    ib = np.nonzero(rr >= nk)[0]
+    border = {
+        "schur_B": (rank[gr[iB]] * kbe + gc[iB] - nk, iB, n_pad * kbe),
+        "schur_C": ((gr[iC] - nk) * n_pad + rank[gc[iC]], iC, kbe * n_pad),
+        "schur_D": ((gr[iD] - nk) * kbe + gc[iD] - nk, iD, kbe * kbe),
+    }
+
+    def blocks(params_batch):
+        g_vals, rhs_vals = stamp_values(stamps, params_batch.to(dtype))
+        W, bk = bplan.assemble_from_values(g_vals, rhs_vals)
+        B = g_vals.shape[0]
+        Bm, C, D = (gather_fold(stamps, name, g_vals, *tables)
+                    for name, tables in border.items())
+        bb = gather_fold(stamps, "schur_b", rhs_vals, rr[ib] - nk, ib, kbe)
+        return (W, Bm.view(B, n_pad, kbe), C.view(B, kbe, n_pad),
+                D.view(B, kbe, kbe), bk, bb)
+
+    return blocks
+
+
+def _make_schur_band_solver(assemble, nplan, nk: int, kbe: int):
+    """(solve_batch, solve_rhs_t) for the banded Schur path.
+
+    ``solve_batch(pb, rhs=None)`` solves G x = b (or the given natural-order
+    RHS); ``solve_rhs_t(pb, rhs)`` solves the transposed system Gᵀλ = rhs.
+    The node block A is symmetric (SPD, the Schur precondition), so
+    transposition only swaps the border blocks B ↔ Cᵀ and D → Dᵀ; the same
+    multi-RHS band solve Y = A⁻¹[B | bk] and Schur algebra run unchanged.
+    The Schur algebra is plain ``torch.matmul`` / ``torch.linalg.solve``
+    (the JAX package leaves it to XLA at "highest" precision): it assumes
+    PyTorch's default of no TF32 in float32 matmuls.
+    """
+
+    def core(params_batch, rhs=None, transpose=False):
+        W, Bm, C, D, bk, bb = assemble(params_batch)
+        if rhs is None:
+            rk, rb = bk, bb
+        else:
+            rk = nplan.rhs_to_band(rhs, W.dtype)
+            rb = rhs[:, nk:].to(W.dtype)
+        if transpose:
+            Bm, C, D = C.transpose(1, 2), Bm.transpose(1, 2), D.transpose(1, 2)
+        R = torch.cat([Bm, rk.unsqueeze(-1)], dim=-1).contiguous()
+        Y = sband_solve_multi(W, R)
+        YB = Y[..., :kbe]
+        yb = Y[..., kbe]
+        S = D - C @ YB
+        rhs_b = rb - (C @ yb.unsqueeze(-1))[..., 0]
+        xb = torch.linalg.solve(S, rhs_b.unsqueeze(-1))[..., 0]
+        xk_band = yb - (YB @ xb.unsqueeze(-1))[..., 0]
+        return torch.cat([nplan.unpermute(xk_band), xb], dim=-1)
+
+    return core, (lambda pb, rhs: core(pb, rhs, transpose=True))
+
+
 def _resolve_device(device) -> torch.device:
     dev = torch.device(device)
     if dev.type == "cuda":
@@ -301,7 +483,8 @@ def _resolve_device(device) -> torch.device:
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to nodal_tpu_torch yet (ROADMAP.md Queue 1); "
-        "only the 'tridiag' tier is")
+        "ported: the 'tridiag' and 'sband' tiers and the 'schur' tier's "
+        "narrow-node-block branch")
 
 
 class BatchedSolver:
@@ -313,14 +496,22 @@ class BatchedSolver:
       resistive): band assembly + parallel cyclic reduction in the CUDA
       kernel (the plain torch PCR for CPU tensors), O(n log n) work, no
       dense matrix ever built.
+    * ``sband`` — narrow-band resistive circuits (half-bandwidth ≤ 56
+      after RCM, e.g. 2-D meshes): scalar band assembly + the no-pivot
+      banded LDLᵀ in the CUDA kernel (the plain torch solver for CPU
+      tensors), O(n·w²) work.
+    * ``schur`` — branch-equation circuits whose resistive node block is
+      SPD (a host-side Cholesky probe) and a narrow band: the same kernel
+      solves A⁻¹[B | b] with the border columns as extra right-hand sides,
+      then a small pivoted solve on the branch Schur complement.
 
     Args:
         circuit: the compiled circuit, or bare :class:`StampTensors`.
         dtype: ``torch.float32`` (default) or ``torch.float64``.
         refine: ``"auto"`` (default, with f32) wraps the raw tier in the
-            exact-f64 contract layer and returns f64; ``True`` adds f64
-            band-residual refinement (f64 output); ``False`` is the raw
-            tier in ``dtype``.
+            exact-f64 contract layer and returns f64; ``True`` adds two
+            f64 refinement passes over f32 solves (f64 output); ``False``
+            is the raw tier in ``dtype``.
         method: override the structure-based choice.
         device: where every tensor of a solve lives; default ``"cuda"``.
     """
@@ -357,23 +548,47 @@ class BatchedSolver:
         stamps = self.stamps
         resistive = stamps.n == stamps.n_kcl  # no branch equations
         if method == "auto":
-            if not (resistive and bandwidth(stamps) <= 1):
+            if resistive and bandwidth(stamps) <= 1:
+                method = "tridiag"
+            elif resistive and sband_plan(stamps) is not None:
+                method = "sband"
+            elif resistive:
                 raise _not_ported(
-                    "the tier this circuit needs (it is not a purely "
-                    f"resistive chain: bandwidth {bandwidth(stamps)}, "
-                    f"{stamps.n - stamps.n_kcl} branch equations)")
-            method = "tridiag"
+                    "the 'band' and 'block' tiers this circuit needs (a "
+                    "resistive circuit wider than the scalar band: "
+                    f"half-bandwidth > {MAX_W} after RCM, or n > 16384)")
+            elif stamps.n_kcl >= 256 and _schur_supported(stamps):
+                method = "schur"
+            elif stamps.n > _DENSE_BATCH_MAX_N:
+                raise ValueError(
+                    f"circuit needs the dense batch tier but n={stamps.n} "
+                    f"exceeds its bound (n <= {_DENSE_BATCH_MAX_N})")
+            else:
+                raise _not_ported("the 'dense' tier this circuit needs")
         elif method in ("tridiag", "sband", "band", "block") \
                 and not resistive:
             raise ValueError(
                 f"method={method!r} requires a purely resistive circuit "
                 "(branch equations put zeros on the diagonal)"
             )
-        elif method == "schur" and resistive:
+        elif method == "sband" and sband_plan(stamps) is None:
             raise ValueError(
-                "method='schur' requires branch equations (use 'block' "
-                "for purely resistive circuits)"
+                "method='sband' requires a narrow symmetric band after "
+                f"RCM reordering (half-bandwidth <= {MAX_W}); this "
+                "circuit does not qualify — use 'band' or 'block'"
             )
+        elif method == "schur":
+            if resistive:
+                raise ValueError(
+                    "method='schur' requires branch equations (use 'block' "
+                    "for purely resistive circuits)"
+                )
+            if not _schur_supported(stamps):
+                raise ValueError(
+                    "method='schur' requires an SPD resistive node block "
+                    "(every node resistively connected, ground included); "
+                    "the Cholesky probe failed — use 'dense'"
+                )
         elif method == "tridiag" and bandwidth(stamps) > 1:
             # Band assembly silently drops out-of-band entries; forcing the
             # method on a wider matrix would return wrong answers.
@@ -381,24 +596,69 @@ class BatchedSolver:
                 f"method='tridiag' requires bandwidth <= 1; this circuit "
                 f"has bandwidth {bandwidth(stamps)}"
             )
-        if method != "tridiag":
+        if method in ("band", "block", "dense"):
             raise _not_ported(f"method={method!r}")
         self.method = method
 
-        if refine:
-            solve_batch = _refined_tridiag_solver(stamps)
+        if method == "tridiag":
+            if refine:
+                solve_batch = _refined_tridiag_solver(stamps)
+            else:
+
+                def solve_batch(params_batch, rhs=None):
+                    dl, d, du, b = assemble_tridiag(stamps, params_batch,
+                                                    dtype=dtype)
+                    if rhs is not None:
+                        b = rhs.to(dtype).contiguous()
+                    return pcr_solve(dl, d, du, b)
+
+            # Resistive ⇒ symmetric operator: the transposed solve is the
+            # same solve with the given RHS.
+            self._finalize(solve_batch, solve_batch)
+        elif method == "sband":
+            solve_batch = _sband_solver(stamps, sband_plan(stamps), dtype,
+                                        bool(refine))
+            self._finalize(solve_batch, solve_batch)  # symmetric
         else:
+            self._finalize(*self._schur_solvers(dtype, bool(refine)))
 
-            def solve_batch(params_batch, rhs=None):
-                dl, d, du, b = assemble_tridiag(stamps, params_batch,
-                                                dtype=dtype)
-                if rhs is not None:
-                    b = rhs.to(dtype).contiguous()
-                return pcr_solve(dl, d, du, b)
+    def _schur_solvers(self, dtype, refine: bool):
+        """(solve_batch, solve_rhs_t) of the ``schur`` tier.
 
-        # Resistive ⇒ symmetric operator: the transposed solve is the same
-        # solve with the given RHS.
-        self._finalize(solve_batch, solve_batch)
+        Ported: the narrow-node-block branch, where the node block has a
+        scalar-band plan and its W1 band slots plus the kbe + 1 border and
+        RHS columns fit the kernel.  ``refine`` wraps both directions in two
+        exact-COO f64 defect passes over f32 solves (f64 out); otherwise
+        the solve runs in ``dtype``.  The JAX package's other sub-branches
+        (block-band kernel, band scan, dense LU) are not ported.  (On the
+        CPU the JAX package takes its dense ``schur_solve`` sub-branch for
+        node blocks up to 2048 nodes; the port takes this one everywhere.)
+        """
+        stamps = self.stamps
+        nk = stamps.n_kcl
+        kbe = stamps.n - nk
+        nsplan = node_sband_plan(stamps)
+        if nsplan is None or not sband_fits(nsplan.W1, kbe + 1):
+            raise _not_ported(
+                "the schur tier's sub-branches for node blocks that are not "
+                f"a narrow band (half-bandwidth <= {MAX_W} after RCM, with "
+                f"its {kbe} border columns)")
+        assemble = _schur_band_assembler(
+            stamps, torch.float32 if refine else dtype, nsplan)
+        core_b, core_t = _make_schur_band_solver(assemble, nsplan, nk, kbe)
+        if not refine:
+            return core_b, core_t
+        stamps_t = _transposed_stamps(stamps)
+
+        def solve_batch(pb, rhs=None):
+            return _coo_defect_refine(stamps, pb, rhs, core_b(pb, rhs),
+                                      lambda r: core_b(pb, r))
+
+        def solve_rhs_t(pb, rhs):
+            return _coo_defect_refine(stamps_t, pb, rhs, core_t(pb, rhs),
+                                      lambda r: core_t(pb, r))
+
+        return solve_batch, solve_rhs_t
 
     def _finalize(self, solve_batch, solve_rhs_t):
         """Wrap the method's raw solver in the contract layer when
@@ -458,9 +718,7 @@ class BatchedSolver:
 class BatchResult:
     """Named access to a batch of solutions ([B, n_unknowns]).
 
-    ``potential(node)`` returns a [B] tensor.  (Branch currents, the JAX
-    package's ``current``, come with the tiers that solve circuits having
-    them.)
+    ``potential(node)`` and ``current(component)`` return [B] tensors.
     """
 
     def __init__(self, solutions: torch.Tensor, netlist):
@@ -473,6 +731,12 @@ class BatchResult:
                                dtype=self.solutions.dtype,
                                device=self.solutions.device)
         return self.solutions[:, self._netlist.nodenum[node]]
+
+    def current(self, name: str) -> torch.Tensor:
+        """Branch current of the anomalous component ``name`` (a voltage
+        source or controlled source with a branch equation)."""
+        i = self._netlist.nums["kcl"] + self._netlist.anomnum[name]
+        return self.solutions[:, i]
 
 
 def sweep(

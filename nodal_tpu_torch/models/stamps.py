@@ -379,15 +379,16 @@ def stamp_values_np(stamps: StampTensors, params: np.ndarray):
     return g_vals, rhs_vals
 
 
-def device_table(stamps: StampTensors, name: str, array, device,
+def device_table(owner, name: str, array, device,
                  dtype=None) -> torch.Tensor:
-    """``array`` (a static host table of this topology) as a tensor on
-    ``device``, copied once and cached on the stamps under ``name``.
+    """``array`` (a static host table of one topology) as a tensor on
+    ``device``, copied once and cached on ``owner`` (the stamps, or a plan
+    built from them) under ``name``.
 
     The JAX package bakes these tables into the compiled program as
     constants; eager torch would otherwise copy them host-to-device on
     every call."""
-    cache = stamps.__dict__.setdefault("_device_tables", {})
+    cache = owner.__dict__.setdefault("_device_tables", {})
     key = (name, str(torch.device(device)), dtype)
     t = cache.get(key)
     if t is None:

@@ -38,8 +38,10 @@ _I = ctypes.c_int
 
 #: C signature of each exported launcher: (argtypes, restype).
 _SIGNATURES = {
-    name: ([_P] * 6 + [_I] * 6 + [_P], _I)
-    for name in ("pcr_solve_f32", "pcr_solve_f64")
+    **{name: ([_P] * 6 + [_I] * 6 + [_P], _I)
+       for name in ("pcr_solve_f32", "pcr_solve_f64")},
+    **{name: ([_P] * 4 + [_I] * 7 + [_P], _I)
+       for name in ("sband_solve_f32", "sband_solve_f64")},
 }
 
 

@@ -1,6 +1,8 @@
 """The port's batched ladder sweep end to end against the JAX package: the
 raw tier, the exact-f64 contract layer, the refined tier, the audit, the
-pivoted rescue and the refusals of tiers not ported yet."""
+pivoted rescue and the refusals of tiers not ported yet (the mesh and
+branch tiers have their own files, test_torch_sband.py and
+test_torch_schur.py)."""
 
 import numpy as np
 import pytest
@@ -197,11 +199,18 @@ def test_sweep_and_params_with_match_reference(ladder):
         _jax_solver(jc).params_with({"rs1": values}))
 
 
+#: A mesh too wide for the scalar band (half-bandwidth ~61 after RCM): the
+#: JAX package sends it to the block-band tier.
+WIDE_MESH = list(grid_rows(60, 60, (0, 0), (59, 59))) + [
+    ["src", "A", "1", "1", "g"]]
+
+
 @pytest.mark.parametrize("rows", [
-    pytest.param(list(grid_rows(5, 6, (0, 0), (4, 5)))
-                 + [["src", "A", "1", "1", "g"]], id="mesh"),
+    pytest.param(WIDE_MESH, id="mesh"),
     pytest.param(ladder_rows(8)[1:] + [["v0", "E", "1", "n0", "g"]],
                  id="voltage-source"),
+    pytest.param(WIDE_MESH[:-1] + [["e1", "E", "2", "1", "g"]],
+                 id="branch-wide-node-block"),
 ])
 def test_tiers_not_ported_raise(rows):
     circuit = Circuit(Netlist.from_rows(rows))
@@ -209,10 +218,25 @@ def test_tiers_not_ported_raise(rows):
         BatchedSolver(circuit, device="cpu")
 
 
-@pytest.mark.parametrize("method", ["sband", "band", "block", "dense"])
-def test_forced_tiers_not_ported_raise(ladder, method):
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        BatchedSolver(ladder[1], method=method, device="cpu")
+@pytest.mark.parametrize("method,error", [
+    # The port has the sband tier: forcing it on a circuit that does not
+    # qualify is the JAX package's ValueError.
+    pytest.param("sband", ValueError, id="sband"),
+    pytest.param("band", NotImplementedError, id="band"),
+    pytest.param("block", NotImplementedError, id="block"),
+    pytest.param("dense", NotImplementedError, id="dense"),
+])
+def test_forced_tiers_not_ported_raise(ladder, method, error):
+    if error is ValueError:
+        with pytest.raises(ValueError, match="narrow symmetric band"):
+            jbatch.BatchedSolver(JCircuit(JNetlist.from_rows(WIDE_MESH)),
+                                 method=method)
+        with pytest.raises(ValueError, match="narrow symmetric band"):
+            BatchedSolver(Circuit(Netlist.from_rows(WIDE_MESH)),
+                          method=method, device="cpu")
+    else:
+        with pytest.raises(NotImplementedError, match="Queue 1"):
+            BatchedSolver(ladder[1], method=method, device="cpu")
 
 
 @pytest.mark.parametrize("method,rows", [
