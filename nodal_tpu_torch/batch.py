@@ -12,13 +12,16 @@ Ported so far: the ``tridiag`` tier (chain and ladder topologies: band
 assembly, then the CUDA PCR kernel of :mod:`nodal_tpu_torch.ops.pcr`), the
 ``sband`` tier (narrow-band resistive circuits such as 2-D meshes: scalar
 band assembly, then the CUDA scalar-band LDLᵀ kernel of
-:mod:`nodal_tpu_torch.ops.sband`), the ``schur`` tier's narrow-node-block
-branch (branch-equation circuits whose node block is a narrow band: the
-same kernel with the border columns as extra right-hand sides), and the
-exact-f64 defect-correction contract layer that ``refine="auto"`` wraps
-around each.  Every other tier, and the adjoint, Monte Carlo and
-sensitivities, raise ``NotImplementedError`` or are absent (ROADMAP.md
-Queue 1).
+:mod:`nodal_tpu_torch.ops.sband`), the ``band`` tier (wider resistive
+bands such as large meshes and 3-D lattices: block-band assembly, then the
+CUDA block-Thomas kernel of :mod:`nodal_tpu_torch.ops.block_thomas`), the
+``schur`` tier's banded sub-branches (branch-equation circuits whose node
+block is a narrow or a block band: the same kernels with the border
+columns as extra right-hand sides), and the exact-f64 defect-correction
+contract layer that ``refine="auto"`` wraps around each.  The ``block``
+and ``dense`` tiers, the schur tier's dense sub-branches, and the adjoint,
+Monte Carlo and sensitivities raise ``NotImplementedError`` or are absent
+(ROADMAP.md Queue 1).
 
 Device policy: a solver runs on the device it is given (default
 ``"cuda"``, which raises when CUDA is absent).  Every tensor of a solve,
@@ -38,12 +41,15 @@ from nodal_tpu_torch.models.stamps import (StampTensors, device_table,
                                            stamp_values, stamp_values_np)
 from nodal_tpu_torch.ops import dense_solve
 from nodal_tpu_torch.ops.assemble import (assemble_dense, assemble_tridiag,
-                                          bandwidth)
+                                          bandwidth, gather_fold)
+from nodal_tpu_torch.ops.band import band_plan, node_band_plan
+from nodal_tpu_torch.ops.block_thomas import (MAX_R, band_solve,
+                                              band_solve_multi)
 from nodal_tpu_torch.ops.pcr import pcr_solve
 from nodal_tpu_torch.ops.sband import (sband_fits, sband_solve,
                                        sband_solve_multi)
-from nodal_tpu_torch.ops.scalar_band import (MAX_W, gather_fold,
-                                             node_sband_plan, sband_plan)
+from nodal_tpu_torch.ops.scalar_band import (MAX_W, node_sband_plan,
+                                             sband_plan)
 from nodal_tpu_torch.ops.tridiag import tridiag_matvec
 
 #: Rows with more COO entries than this keep the scatter-add audit (the
@@ -70,8 +76,7 @@ _ESCALATE_CHUNK_BYTES = 1 << 28
 _DENSE_BATCH_MAX_N = 16384
 
 #: The node-block SPD probe of the schur tier is a dense f64 Cholesky up to
-#: this many nodes; past it the JAX package probes with a banded Cholesky
-#: on its block-band plan, which is not ported yet.
+#: this many nodes and a banded Cholesky on the block-band plan past it.
 _SCHUR_DENSE_PROBE_MAX_NK = 8192
 
 _METHODS = ("auto", "tridiag", "sband", "band", "block", "schur", "dense")
@@ -328,32 +333,38 @@ def _refined_tridiag_solver(stamps: StampTensors, iters: int = 2):
     return solve_batch
 
 
-def _sband_solver(stamps: StampTensors, splan, dtype, refine: bool):
-    """The ``sband`` tier's solve ``(pb, rhs=None) -> [B, n]``.
+def _band_solver(stamps: StampTensors, plan, dtype, refine: bool, solve):
+    """The solve ``(pb, rhs=None) -> [B, n]`` of a banded resistive tier:
+    ``band`` (a :class:`~nodal_tpu_torch.ops.band.BandPlan` and
+    ``band_solve``, the block-Thomas kernel) or ``sband`` (a scalar-band
+    plan and ``sband_solve``).
 
-    Raw: scalar-band assembly and the kernel in ``dtype`` (f64 runs the
-    kernel's f64 instantiation on the card).  ``refine``: f32 kernel
-    solves plus two exact-COO f64 defect passes, f64 out.
+    Raw: assembly and the kernel in ``dtype`` (f64 runs the kernel's f64
+    instantiation on the card).  ``refine``: the band assembled in f32
+    only, f32 kernel solves, and two exact-COO f64 defect passes, f64 out.
+    The band is never materialised in f64: the passes read the stamp
+    entries (O(B·nnz)) instead of an f64 copy of the band, which would be
+    the largest tensor of the call.
     """
     if not refine:
 
         def solve_batch(params_batch, rhs=None):
-            U, b = splan.assemble(stamps, params_batch, dtype=dtype)
+            W, b = plan.assemble(stamps, params_batch, dtype=dtype)
             if rhs is not None:
-                b = splan.rhs_to_band(rhs, dtype)
-            return splan.unpermute(sband_solve(U, b))
+                b = plan.rhs_to_band(rhs, dtype)
+            return plan.unpermute(solve(W, b))
 
         return solve_batch
 
     def solve_batch(params_batch, rhs=None):
-        U, b = splan.assemble(stamps, params_batch, dtype=torch.float32)
+        W, b = plan.assemble(stamps, params_batch, dtype=torch.float32)
         if rhs is not None:
-            b = splan.rhs_to_band(rhs, torch.float32)
-        x = splan.unpermute(sband_solve(U, b))
+            b = plan.rhs_to_band(rhs, torch.float32)
+        x = plan.unpermute(solve(W, b))
         return _coo_defect_refine(
             stamps, params_batch, rhs, x,
-            lambda r: splan.unpermute(
-                sband_solve(U, splan.rhs_to_band(r, torch.float32))))
+            lambda r: plan.unpermute(
+                solve(W, plan.rhs_to_band(r, torch.float32))))
 
     return solve_batch
 
@@ -363,23 +374,24 @@ def _schur_supported(stamps: StampTensors) -> bool:
 
     Only resistor stamps land in A, so SPD-ness means every node is
     resistively tied to ground directly or transitively; a node held only
-    by voltage sources makes A singular.  A dense f64 Cholesky at the
-    netlist's default parameters, cached on the stamps; a barely positive
-    pivot (below 1e-6 of the largest) counts as a failure, since the f32
-    no-pivot kernel would blow up on it.
+    by voltage sources makes A singular.  Run once at the netlist's default
+    parameters and cached on the stamps:
+
+    * nk ≤ 8192: a dense f64 Cholesky;
+    * nk > 8192: a banded f64 Cholesky on the node block's band plan
+      (:func:`_banded_spd_probe`); a node block without one (or with one
+      block row) is refused, since only the banded sub-branches serve such
+      sizes.
+
+    A barely positive pivot (below 1e-6 of the largest) counts as a
+    failure, since the f32 no-pivot kernels would blow up on it.
     """
     cached = stamps.__dict__.get("_schur_ok")
     if cached is not None:
         return cached
     nk = stamps.n_kcl
-    if nk > _SCHUR_DENSE_PROBE_MAX_NK and stamps.n > nk:
-        raise _not_ported(
-            f"the schur tier's SPD probe for node blocks past "
-            f"{_SCHUR_DENSE_PROBE_MAX_NK} nodes (this one has {nk}; the JAX "
-            "package probes those with a banded Cholesky on its block-band "
-            "plan)")
     ok = False
-    if 0 < nk and stamps.n > nk:
+    if 0 < nk <= _SCHUR_DENSE_PROBE_MAX_NK and stamps.n > nk:
         mask = (stamps.g_rows < nk) & (stamps.g_cols < nk)
         g_np, _ = stamp_values_np(stamps, stamps.params)
         A = np.zeros((nk, nk))
@@ -389,16 +401,47 @@ def _schur_supported(stamps: StampTensors) -> bool:
             ok = bool(np.min(np.diag(L)) > 1e-6 * np.max(np.diag(L)))
         except np.linalg.LinAlgError:
             ok = False
+    elif nk > _SCHUR_DENSE_PROBE_MAX_NK and stamps.n > nk:
+        plan = node_band_plan(stamps)
+        if plan is not None and plan.nb >= 2:
+            ok = _banded_spd_probe(stamps, plan)
     stamps.__dict__["_schur_ok"] = ok
     return ok
+
+
+def _banded_spd_probe(stamps: StampTensors, plan) -> bool:
+    """f64 banded Cholesky (scipy ``cholesky_banded``, LAPACK pbtrf) of the
+    reordered node block: O(nk·halfbw²) work, where the dense probe's
+    O(nk³) is unpayable past ~8k nodes.  False (not an exception) for a
+    block that is not SPD, with the dense probe's pivot margin."""
+    import scipy.linalg as sla
+
+    nk = stamps.n_kcl
+    g_np, _ = stamp_values_np(stamps, stamps.params)
+    mask = (stamps.g_rows < nk) & (stamps.g_cols < nk)
+    r = plan.rank[stamps.g_rows[mask].astype(np.int64)]
+    c = plan.rank[stamps.g_cols[mask].astype(np.int64)]
+    v = g_np[mask]
+    upper = c >= r
+    u = plan.halfbw
+    ab = np.zeros((u + 1, nk))
+    np.add.at(ab, (u + r[upper] - c[upper], c[upper]), v[upper])
+    try:
+        with np.errstate(all="ignore"):
+            cb = sla.cholesky_banded(ab, lower=False)
+    except (np.linalg.LinAlgError, ValueError):
+        return False
+    d = cb[u, :]
+    return bool(np.all(np.isfinite(d)) and np.min(d) > 1e-6 * np.max(d))
 
 
 def _schur_band_assembler(stamps: StampTensors, dtype, bplan):
     """``blocks(pb) -> (W, Bm, C, D, bk, bb)``: the MNA 2×2 partition with
     the resistive node block in band storage.
 
-    W [B, n_pad, W1] and bk [B, n_pad] come from the node block's plan
-    ``bplan``; the border blocks Bm [B, n_pad, kbe], C [B, kbe, n_pad],
+    W and bk [B, n_pad] come from the node block's plan ``bplan``: W is
+    [B, n_pad, W1] for a scalar-band plan, [B, nb, kb, 3kb] for a
+    block-band plan.  The border blocks Bm [B, n_pad, kbe], C [B, kbe, n_pad],
     D [B, kbe, kbe] and bb [B, kbe] are gather-folds of the stamp values,
     with Bm's rows and C's columns in the plan's order so only the final
     node voltages need un-permuting.
@@ -433,14 +476,17 @@ def _schur_band_assembler(stamps: StampTensors, dtype, bplan):
     return blocks
 
 
-def _make_schur_band_solver(assemble, nplan, nk: int, kbe: int):
-    """(solve_batch, solve_rhs_t) for the banded Schur path.
+def _make_schur_band_solver(assemble, multi_solve, nplan, nk: int,
+                            kbe: int):
+    """(solve_batch, solve_rhs_t) for the banded Schur paths.
 
     ``solve_batch(pb, rhs=None)`` solves G x = b (or the given natural-order
     RHS); ``solve_rhs_t(pb, rhs)`` solves the transposed system Gᵀλ = rhs.
     The node block A is symmetric (SPD, the Schur precondition), so
     transposition only swaps the border blocks B ↔ Cᵀ and D → Dᵀ; the same
-    multi-RHS band solve Y = A⁻¹[B | bk] and Schur algebra run unchanged.
+    multi-RHS band solve ``multi_solve`` (Y = A⁻¹[B | bk]; the scalar-band
+    or the block-Thomas kernel, as the plan is) and Schur algebra run
+    unchanged.
     The Schur algebra is plain ``torch.matmul`` / ``torch.linalg.solve``
     (the JAX package leaves it to XLA at "highest" precision): it assumes
     PyTorch's default of no TF32 in float32 matmuls.
@@ -456,7 +502,7 @@ def _make_schur_band_solver(assemble, nplan, nk: int, kbe: int):
         if transpose:
             Bm, C, D = C.transpose(1, 2), Bm.transpose(1, 2), D.transpose(1, 2)
         R = torch.cat([Bm, rk.unsqueeze(-1)], dim=-1).contiguous()
-        Y = sband_solve_multi(W, R)
+        Y = multi_solve(W, R)
         YB = Y[..., :kbe]
         yb = Y[..., kbe]
         S = D - C @ YB
@@ -483,8 +529,8 @@ def _resolve_device(device) -> torch.device:
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to nodal_tpu_torch yet (ROADMAP.md Queue 1); "
-        "ported: the 'tridiag' and 'sband' tiers and the 'schur' tier's "
-        "narrow-node-block branch")
+        "ported: the 'tridiag', 'sband' and 'band' tiers and the 'schur' "
+        "tier's banded sub-branches")
 
 
 class BatchedSolver:
@@ -500,10 +546,15 @@ class BatchedSolver:
       after RCM, e.g. 2-D meshes): scalar band assembly + the no-pivot
       banded LDLᵀ in the CUDA kernel (the plain torch solver for CPU
       tensors), O(n·w²) work.
+    * ``band`` — wider resistive bands (half-bandwidth ≤ 384 after RCM,
+      e.g. large 2-D meshes and 3-D lattices): block-band assembly with
+      kb ∈ {128, 256, 384} + the no-pivot block-Thomas solve in the CUDA
+      kernel (the plain torch solver for CPU tensors), O(n·kb²) work.
     * ``schur`` — branch-equation circuits whose resistive node block is
-      SPD (a host-side Cholesky probe) and a narrow band: the same kernel
-      solves A⁻¹[B | b] with the border columns as extra right-hand sides,
-      then a small pivoted solve on the branch Schur complement.
+      SPD (a host-side Cholesky probe) and a narrow or a block band: the
+      scalar-band or block-Thomas kernel solves A⁻¹[B | b] with the border
+      columns as extra right-hand sides, then a small pivoted solve on the
+      branch Schur complement.
 
     Args:
         circuit: the compiled circuit, or bare :class:`StampTensors`.
@@ -552,11 +603,20 @@ class BatchedSolver:
                 method = "tridiag"
             elif resistive and sband_plan(stamps) is not None:
                 method = "sband"
+            elif resistive and (plan := band_plan(stamps)) is not None \
+                    and plan.nb >= 2 and (plan.kb == 128 or plan.n > 1024):
+                # Wide bands (kb ≥ 256) only pay off past n = 1024 in the
+                # JAX package's measurements; below it the dense LU wins.
+                method = "band"
             elif resistive:
-                raise _not_ported(
-                    "the 'band' and 'block' tiers this circuit needs (a "
-                    "resistive circuit wider than the scalar band: "
-                    f"half-bandwidth > {MAX_W} after RCM, or n > 16384)")
+                if stamps.n > _DENSE_BATCH_MAX_N:
+                    raise ValueError(
+                        f"circuit has no banded structure and n={stamps.n} "
+                        "exceeds the dense batch tier (n <= "
+                        f"{_DENSE_BATCH_MAX_N}); use Circuit.solve (sparse "
+                        "AMG-CG), grid_solve for regular grids, or "
+                        "equivalent_resistance_stamps for probe solves")
+                raise _not_ported("the 'block' tier this circuit needs")
             elif stamps.n_kcl >= 256 and _schur_supported(stamps):
                 method = "schur"
             elif stamps.n > _DENSE_BATCH_MAX_N:
@@ -577,6 +637,11 @@ class BatchedSolver:
                 f"RCM reordering (half-bandwidth <= {MAX_W}); this "
                 "circuit does not qualify — use 'band' or 'block'"
             )
+        elif method == "band" and band_plan(stamps) is None:
+            raise ValueError(
+                "method='band' requires half-bandwidth <= 384 after RCM "
+                "reordering; this circuit does not band — use 'block'"
+            )
         elif method == "schur":
             if resistive:
                 raise ValueError(
@@ -596,7 +661,7 @@ class BatchedSolver:
                 f"method='tridiag' requires bandwidth <= 1; this circuit "
                 f"has bandwidth {bandwidth(stamps)}"
             )
-        if method in ("band", "block", "dense"):
+        if method in ("block", "dense"):
             raise _not_ported(f"method={method!r}")
         self.method = method
 
@@ -615,9 +680,13 @@ class BatchedSolver:
             # Resistive ⇒ symmetric operator: the transposed solve is the
             # same solve with the given RHS.
             self._finalize(solve_batch, solve_batch)
-        elif method == "sband":
-            solve_batch = _sband_solver(stamps, sband_plan(stamps), dtype,
-                                        bool(refine))
+        elif method in ("sband", "band"):
+            if method == "sband":
+                plan, solve = sband_plan(stamps), sband_solve
+            else:
+                plan, solve = band_plan(stamps), band_solve
+            solve_batch = _band_solver(stamps, plan, dtype, bool(refine),
+                                       solve)
             self._finalize(solve_batch, solve_batch)  # symmetric
         else:
             self._finalize(*self._schur_solvers(dtype, bool(refine)))
@@ -625,27 +694,47 @@ class BatchedSolver:
     def _schur_solvers(self, dtype, refine: bool):
         """(solve_batch, solve_rhs_t) of the ``schur`` tier.
 
-        Ported: the narrow-node-block branch, where the node block has a
-        scalar-band plan and its W1 band slots plus the kbe + 1 border and
-        RHS columns fit the kernel.  ``refine`` wraps both directions in two
+        Ported: the banded sub-branches, in the JAX package's order.
+
+        * The narrow node block: a scalar-band plan whose W1 band slots
+          plus the kbe + 1 border and RHS columns fit the scalar-band
+          kernel.
+        * The bandable node block: a block-band plan with nb ≥ 2 and
+          (kb = 128 or nk > 1024), and kbe + 1 ≤ 128 right-hand sides.
+        * The band scan: a block-band plan with nb ≥ 2 and nk > 2048, any
+          number of right-hand sides (the block-Thomas wrapper launches
+          once per 128 of them).
+
+        The last two run the block-Thomas kernel on the card (the plain
+        solver on the CPU).  ``refine`` wraps both directions in two
         exact-COO f64 defect passes over f32 solves (f64 out); otherwise
-        the solve runs in ``dtype``.  The JAX package's other sub-branches
-        (block-band kernel, band scan, dense LU) are not ported.  (On the
-        CPU the JAX package takes its dense ``schur_solve`` sub-branch for
-        node blocks up to 2048 nodes; the port takes this one everywhere.)
+        the solve runs in ``dtype``.  The JAX package's Pallas-LU and dense
+        ``schur_solve`` sub-branches are not ported.  (On the CPU the JAX
+        package takes its dense sub-branch for node blocks up to 2048
+        nodes and a direct f64 band scan for ``refine=True``; the tier is
+        the same.)
         """
         stamps = self.stamps
         nk = stamps.n_kcl
         kbe = stamps.n - nk
         nsplan = node_sband_plan(stamps)
-        if nsplan is None or not sband_fits(nsplan.W1, kbe + 1):
+        if nsplan is not None and sband_fits(nsplan.W1, kbe + 1):
+            plan, multi = nsplan, sband_solve_multi
+        elif (nplan := node_band_plan(stamps)) is not None \
+                and nplan.nb >= 2 and (
+                (nplan.kb == 128 or nk > 1024) and kbe + 1 <= MAX_R
+                or nk > 2048):
+            plan, multi = nplan, band_solve_multi
+        else:
             raise _not_ported(
-                "the schur tier's sub-branches for node blocks that are not "
-                f"a narrow band (half-bandwidth <= {MAX_W} after RCM, with "
-                f"its {kbe} border columns)")
+                "the schur tier's Pallas-LU and dense sub-branches, which "
+                "this circuit's node block needs (no narrow or block band "
+                f"the banded sub-branches take, with its {kbe} border "
+                "columns)")
         assemble = _schur_band_assembler(
-            stamps, torch.float32 if refine else dtype, nsplan)
-        core_b, core_t = _make_schur_band_solver(assemble, nsplan, nk, kbe)
+            stamps, torch.float32 if refine else dtype, plan)
+        core_b, core_t = _make_schur_band_solver(assemble, multi, plan, nk,
+                                                 kbe)
         if not refine:
             return core_b, core_t
         stamps_t = _transposed_stamps(stamps)

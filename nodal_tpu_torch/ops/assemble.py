@@ -108,3 +108,56 @@ def assemble_tridiag(stamps: StampTensors, params: torch.Tensor, dtype=None):
     du = fold(g_vals, -1)  # G[i, i+1]
     b = fold(rhs_vals, "rhs")
     return dl, d, du, b
+
+
+def _fold_table(targets: np.ndarray, entries: np.ndarray):
+    """Turn the scatter ``out[targets[e]] += vals[entries[e]]`` into a
+    gather-fold over the distinct targets.
+
+    Returns ``(dest [T], ids [T, K], valid [T, K])``: ``dest`` the sorted
+    distinct targets, ``ids`` the entries landing on each (in their order
+    in ``entries``, zero-padded to the most any target takes) and ``valid``
+    the 1/0 slot mask.  Folding ``(vals[..., ids] * valid).sum(-1)`` into
+    ``dest`` is deterministic on every device, unlike an atomic scatter.
+    """
+    dest, inv = np.unique(targets, return_inverse=True)
+    counts = np.bincount(inv, minlength=len(dest))
+    K = int(counts.max()) if len(counts) else 1
+    order = np.argsort(inv, kind="stable")
+    offsets = np.zeros(len(dest), dtype=np.int64)
+    np.cumsum(counts[:-1], out=offsets[1:])
+    pos = np.arange(len(inv), dtype=np.int64) - offsets[inv[order]]
+    ids = np.zeros((len(dest), K), dtype=np.int64)
+    valid = np.zeros((len(dest), K), dtype=np.float64)
+    ids[inv[order], pos] = entries[order]
+    valid[inv[order], pos] = 1.0
+    return dest, ids, valid
+
+
+def gather_fold(owner, name: str, vals: torch.Tensor, targets: np.ndarray,
+                entries: np.ndarray, size: int) -> torch.Tensor:
+    """``out[:, targets[e]] += vals[:, entries[e]]`` into a zero
+    ``[B, size]``, as a deterministic gather-fold (:func:`_fold_table`).
+
+    The fold tables are built once and cached on ``owner`` (a plan or the
+    stamps) under ``name``, the device copies with :func:`device_table`.
+    """
+    tables = owner.__dict__.setdefault("_fold_tables", {})
+    if name not in tables:
+        tables[name] = _fold_table(targets, entries)
+    dest, ids, valid = tables[name]
+    dev = vals.device
+    out = torch.zeros(vals.shape[0], size, dtype=vals.dtype, device=dev)
+    if len(dest):
+        i = device_table(owner, name + "_ids", ids, dev, torch.long)
+        v = device_table(owner, name + "_valid", valid, dev, vals.dtype)
+        d = device_table(owner, name + "_dest", dest, dev, torch.long)
+        terms = vals[:, i] * v
+        # Summed left to right, in the order the JAX package's fold adds
+        # them, so f64 assembly agrees exactly with it (``sum(-1)`` may
+        # pair the terms otherwise once a slot takes three or more).
+        acc = terms[..., 0]
+        for k in range(1, terms.shape[-1]):
+            acc = acc + terms[..., k]
+        out.index_copy_(1, d, acc)
+    return out

@@ -1,8 +1,8 @@
 """The port's batched ladder sweep end to end against the JAX package: the
 raw tier, the exact-f64 contract layer, the refined tier, the audit, the
-pivoted rescue and the refusals of tiers not ported yet (the mesh and
-branch tiers have their own files, test_torch_sband.py and
-test_torch_schur.py)."""
+pivoted rescue and the refusals of tiers not ported yet (the mesh, wide-band
+and branch tiers have their own files, test_torch_sband.py,
+test_torch_band.py and test_torch_schur.py)."""
 
 import numpy as np
 import pytest
@@ -199,40 +199,67 @@ def test_sweep_and_params_with_match_reference(ladder):
         _jax_solver(jc).params_with({"rs1": values}))
 
 
-#: A mesh too wide for the scalar band (half-bandwidth ~61 after RCM): the
-#: JAX package sends it to the block-band tier.
+#: A mesh too wide for the scalar band (half-bandwidth 60 after RCM): the
+#: block-band tier takes it.
 WIDE_MESH = list(grid_rows(60, 60, (0, 0), (59, 59))) + [
     ["src", "A", "1", "1", "g"]]
 
 
-@pytest.mark.parametrize("rows", [
-    pytest.param(WIDE_MESH, id="mesh"),
+def _random_graph_rows(n, edges, seed, extra=()):
+    """A random resistor graph with a ground tie on every node: SPD, with
+    no locality for RCM to find (no narrow band, no block band at n = 1200,
+    a block band with kb > 128 at n = 300)."""
+    rng = np.random.default_rng(seed)
+    rows = [["v", "A", "1", "n0", "g"]]
+    for k in range(edges):
+        a, b = rng.integers(0, n, 2)
+        if a != b:
+            rows.append([f"r{k}", "R", "1", f"n{a}", f"n{b}"])
+    return rows + [[f"rg{j}", "R", "1", f"n{j}", "g"] for j in range(n)] + [
+        list(r) for r in extra]
+
+
+#: Unbanded: the JAX package sends it to the dense ``block`` tier.
+RANDOM_GRAPH = _random_graph_rows(1200, 4800, seed=0)
+
+
+@pytest.mark.parametrize("rows,jax_method", [
+    # An unbanded resistive circuit (the id names the wide mesh this case
+    # held before the band tier took meshes; kept so the test id is stable).
+    pytest.param(RANDOM_GRAPH, "block", id="mesh"),
     pytest.param(ladder_rows(8)[1:] + [["v0", "E", "1", "n0", "g"]],
-                 id="voltage-source"),
-    pytest.param(WIDE_MESH[:-1] + [["e1", "E", "2", "1", "g"]],
-                 id="branch-wide-node-block"),
+                 "dense", id="voltage-source"),
+    # An SPD node block of 300 nodes that neither banded schur sub-branch
+    # takes: the JAX package's dense schur sub-branches apply.
+    pytest.param(_random_graph_rows(300, 900, seed=1,
+                                    extra=[["e1", "E", "2", "n1", "g"]]),
+                 "schur", id="branch-wide-node-block"),
 ])
-def test_tiers_not_ported_raise(rows):
+def test_tiers_not_ported_raise(rows, jax_method):
+    assert jbatch.BatchedSolver(JCircuit(JNetlist.from_rows(rows))
+                                ).method == jax_method
     circuit = Circuit(Netlist.from_rows(rows))
     with pytest.raises(NotImplementedError, match="Queue 1"):
         BatchedSolver(circuit, device="cpu")
 
 
 @pytest.mark.parametrize("method,error", [
-    # The port has the sband tier: forcing it on a circuit that does not
-    # qualify is the JAX package's ValueError.
+    # The port has the sband and band tiers: forcing either on a circuit
+    # that does not qualify is the JAX package's ValueError.
     pytest.param("sband", ValueError, id="sband"),
-    pytest.param("band", NotImplementedError, id="band"),
+    pytest.param("band", ValueError, id="band"),
     pytest.param("block", NotImplementedError, id="block"),
     pytest.param("dense", NotImplementedError, id="dense"),
 ])
 def test_forced_tiers_not_ported_raise(ladder, method, error):
     if error is ValueError:
-        with pytest.raises(ValueError, match="narrow symmetric band"):
-            jbatch.BatchedSolver(JCircuit(JNetlist.from_rows(WIDE_MESH)),
+        rows, match = {"sband": (WIDE_MESH, "narrow symmetric band"),
+                       "band": (RANDOM_GRAPH, "does not band")}[method]
+        with pytest.raises(ValueError, match=match):
+            jbatch.BatchedSolver(JCircuit(JNetlist.from_rows(rows)),
                                  method=method)
-        with pytest.raises(ValueError, match="narrow symmetric band"):
-            BatchedSolver(Circuit(Netlist.from_rows(WIDE_MESH)),
+        with pytest.raises(ValueError, match=match):
+            BatchedSolver(Circuit(Netlist.from_rows(rows)),
                           method=method, device="cpu")
     else:
         with pytest.raises(NotImplementedError, match="Queue 1"):
