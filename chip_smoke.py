@@ -19,7 +19,15 @@ sample 0 against a numpy f64 dense solve:
   (``band``, kb = 256), B = 256;
 * the 64×64 mesh driven by a voltage source plus a VCCS (``schur`` tier's
   bandable node block, the block-Thomas kernel with 3 right-hand sides),
-  B = 1024.
+  B = 1024;
+* a 1000-node random resistor network grounded at every 50th node
+  (``block`` tier, blocked-LU kernel, n_pad = 1024), B = 1024, and its
+  4000-node sibling (n_pad = 4096), B = 64;
+* the 1000-node network driven by a voltage source plus a VCCS (``schur``
+  tier's dense node block, the blocked-LU kernel with 3 right-hand sides),
+  B = 1024;
+* a 60-stage chain of opamp-macromodel followers (``dense`` tier, the
+  library's pivoted LU, no kernel of the repo), B = 16384.
 
 Each kernel is also timed against its plain version, against one PyTorch
 call that computes the same function (``torch.linalg.solve`` on the dense
@@ -105,6 +113,32 @@ BAND_SHAPES = [
 ]
 BAND_TIME_SHAPES = [(GENERAL_BATCH, 16, 128, 1), (MIDSIZE_BATCH, 79, 128, 1),
                     (MIDSIZE_BATCH, 10, 256, 1)]
+
+RANDNET_NODES, RANDNET_EDGES = 1000, 4000
+RANDNET4K_NODES, RANDNET4K_EDGES, RANDNET4K_BATCH = 4000, 16000, 64
+RANDNET_TIE_EVERY = 50      # ground ties: the weakest the JAX tests use
+OPCHAIN_STAGES = 60
+# The blocked-LU kernel and its plain version both factor without pivoting
+# (the kernel inverts each 128×128 diagonal block by Gauss-Jordan, the
+# plain version by torch.linalg.inv) and differ by rounding.  On the
+# diagonally dominant class (κ of a few) that is a small multiple of the
+# unit roundoff, at most ~20ε on the card up to 16384 rows: 1e-4 (f32)
+# and 1e-10 (f64) leave more than an order of margin.
+LU_RTOL = {torch.float32: 1e-4, torch.float64: 1e-10}
+# On the graph Laplacians (κ₁ ≈ 2e3) two backward-stable solves may differ
+# by up to κ times as much: the Laplacian tolerance is the larger of
+# LU_RTOL and LU_KAPPA_FACTOR·κ₁·ε (κ₁ of the batch's first system, ε the
+# unit roundoff); the factor allows for modest growth.
+LU_KAPPA_FACTOR = 8
+# (B, n_pad, r): one panel to 128 panels, r from 1 to 130, and the main
+# paths' shapes (randnet, randbranch, randnet4k).
+LU_SHAPES = [(1, 128, 1), (7, 256, 3), (GENERAL_BATCH, 1024, 1),
+             (GENERAL_BATCH, 1024, 3), (7, 1024, 128), (3, 1024, 130),
+             (RANDNET4K_BATCH, 4096, 1), (2, 8192, 1), (1, 16384, 1)]
+# f64 only: 2.3·10⁹ values (18 GB), past 2³¹, for the 64-bit offsets.
+LU_HUGE = (2176, 1024, 1)
+LU_TIME_SHAPES = [(GENERAL_BATCH, 1024, 1), (GENERAL_BATCH, 1024, 3),
+                  (RANDNET4K_BATCH, 4096, 1)]
 
 # Data-sheet peaks of the H100 SXM at full precision and its memory rate:
 # f32 on the CUDA cores (the tensor cores' f32 path is TF32, which is not
@@ -442,6 +476,178 @@ def phase_band_kernel(block_thomas, band):
     return worst, timing
 
 
+def random_dominant(B: int, n: int, r: int, dtype, gen):
+    """Diagonally dominant symmetric matrices [B, n, n], made as the JAX
+    package's dense-method tests make them, and right-hand sides
+    [B, n, r]."""
+    A = 0.5 * torch.randn(B, n, n, generator=gen, device="cuda", dtype=dtype)
+    A = A + A.transpose(1, 2)
+    A.diagonal(dim1=1, dim2=2).add_(
+        A.abs().sum(-1).amax(-1, keepdim=True) + 1.0)
+    R = torch.randn(B, n, r, generator=gen, device="cuda", dtype=dtype)
+    return A.contiguous(), R
+
+
+def random_laplacian(B: int, n: int, r: int, dtype, gen):
+    """Grounded random-graph Laplacians [B, n, n], the ``randnet`` class:
+    a path through the nodes (so no island floats) plus 3n random edges,
+    conductances uniform in [0.5, 1.5], a unit tie to ground on every 50th
+    node; and right-hand sides [B, n, r]."""
+    A = torch.zeros(B, n, n, device="cuda", dtype=dtype)
+    k = 3 * n
+    a = torch.cat([torch.arange(n - 1, device="cuda").expand(B, -1),
+                   torch.randint(0, n, (B, k), generator=gen,
+                                 device="cuda")], dim=1)
+    b = torch.cat([torch.arange(1, n, device="cuda").expand(B, -1),
+                   torch.randint(0, n, (B, k), generator=gen,
+                                 device="cuda")], dim=1)
+    g = 0.5 + torch.rand(a.shape, generator=gen, device="cuda", dtype=dtype)
+    s = torch.arange(B, device="cuda")[:, None].expand_as(a)
+    for i, j, v in ((a, a, g), (b, b, g), (a, b, -g), (b, a, -g)):
+        A.index_put_((s, i, j), v, accumulate=True)
+    tie = torch.arange(0, n, RANDNET_TIE_EVERY, device="cuda")
+    A[:, tie, tie] += 1.0
+    R = torch.randn(B, n, r, generator=gen, device="cuda", dtype=dtype)
+    return A, R
+
+
+def lu_check_tol(A: torch.Tensor, cls: str) -> dict:
+    """The stated tolerance of one check (see ``LU_RTOL`` and
+    ``LU_KAPPA_FACTOR``), with κ₁ of the first system for the Laplacians."""
+    tol = LU_RTOL[A.dtype]
+    if cls == "dominant":
+        return {"tol": tol}
+    kappa = float(torch.linalg.cond(A[0].double(), p=1))
+    eps = torch.finfo(A.dtype).eps / 2
+    return {"tol": max(tol, LU_KAPPA_FACTOR * kappa * eps), "kappa1": kappa}
+
+
+def lu_flops(n: int, r: int) -> float:
+    """Least flops of one dense LU solve: the factorization (2/3·n³) and
+    both sweeps (2·n²·r)."""
+    return 2 / 3 * n ** 3 + 2 * n * n * r
+
+
+def phase_lu_kernel(lu, block_lu):
+    """Blocked-LU kernel vs the plain torch solver (``blocked_factor`` +
+    ``blocked_solve_factored``) on the same CUDA tensors, in two matrix
+    classes; a batch past 2³¹ values in f64; then the kernel, the plain
+    version, the library call and the bound timed at the main paths'
+    shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    worst = {}
+    for dtype in (torch.float32, torch.float64):
+        for B, n, r in LU_SHAPES:
+            for cls, make in (("dominant", random_dominant),
+                              ("laplacian", random_laplacian)):
+                A, R = make(B, n, r, dtype, gen)
+                tol = lu_check_tol(A, cls)
+                want = block_lu.blocked_solve_factored(
+                    block_lu.blocked_factor(A), R)
+                vs_f64 = {}
+                if dtype == torch.float32:
+                    # Which of the two f32 solves sets the difference:
+                    # each against the f64 kernel on the same matrices.
+                    x64 = lu.lu_solve_multi(A.double(), R.double())
+                    vs_f64 = {"plain_vs_f64": rel_diff(
+                        want.reshape(B, -1), x64.reshape(B, -1))}
+                before = (lu.lu_factor.launches,
+                          lu.lu_solve_factored.launches)
+                got = lu.lu_solve_multi(A, R)  # factors A in place
+                torch.cuda.synchronize()
+                check((lu.lu_factor.launches, lu.lu_solve_factored.launches)
+                      == (before[0] + 1, before[1] + 1),
+                      "lu_solve_multi did not launch the kernel once")
+                check(got.dtype == dtype and got.shape == R.shape,
+                      f"lu_solve_multi returned {got.dtype} "
+                      f"{tuple(got.shape)}")
+                check(bool(torch.isfinite(got).all()),
+                      f"lu_solve_multi non-finite at {(B, n, r)} {cls}")
+                err = rel_diff(got.reshape(B, -1), want.reshape(B, -1))
+                if vs_f64:
+                    vs_f64["kernel_vs_f64"] = rel_diff(
+                        got.reshape(B, -1), x64.reshape(B, -1))
+                    del x64
+                emit({"phase": "kernel_check", "kernel": "lu_solve", "B": B,
+                      "n_pad": n, "r": r, "class": cls, "dtype": str(dtype),
+                      "max_rel_diff": err, **tol, **vs_f64})
+                check(err <= tol["tol"],
+                      f"lu_solve_multi differs from the plain solver by "
+                      f"{err:.3e} at {(B, n, r)} {cls} {dtype}")
+                worst[dtype] = max(worst.get(dtype, 0.0), err)
+                del A, R, got, want
+                torch.cuda.empty_cache()
+    # 64-bit offsets: a batch of 2.3·10⁹ f64 values, whose last systems lie
+    # past 2³¹ values (and 2³⁴ bytes); they are held against a kernel solve
+    # of the same 8 systems alone, copied before the in-place factorization.
+    B, n, r = LU_HUGE
+    A = torch.empty(B, n, n, device="cuda", dtype=torch.float64)
+    for lo in range(0, B, 512):
+        A[lo:lo + 512], _ = random_dominant(min(512, B - lo), n, r,
+                                            torch.float64, gen)
+    R = torch.randn(B, n, r, generator=gen, device="cuda",
+                    dtype=torch.float64)
+    tail_A, tail_R = A[-8:].clone(), R[-8:].clone()
+    got = lu.lu_solve_multi(A, R)[-8:]
+    del A
+    want = lu.lu_solve_multi(tail_A, tail_R)
+    torch.cuda.synchronize()
+    err = rel_diff(got.reshape(8, -1), want.reshape(8, -1))
+    emit({"phase": "kernel_check", "kernel": "lu_solve", "B": B, "n_pad": n,
+          "r": r, "class": "dominant", "dtype": str(torch.float64),
+          "values": B * n * n, "compared": "last 8 systems vs alone",
+          "max_rel_diff": err, "tol": LU_RTOL[torch.float64]})
+    check(bool(torch.isfinite(got).all()) and
+          err <= LU_RTOL[torch.float64],
+          f"lu_solve_multi past 2^31 values differs by {err:.3e}")
+    del R, got, want, tail_A, tail_R
+    torch.cuda.empty_cache()
+
+    timing = {}
+    for B, n, r in LU_TIME_SHAPES:
+        for dtype in (torch.float32, torch.float64):
+            A, R = random_laplacian(B, n, r, dtype, gen)
+            W = torch.empty_like(A)
+            want = block_lu.blocked_solve_factored(
+                block_lu.blocked_factor(A), R)
+            got = lu.lu_solve_multi(W.copy_(A), R)
+            max_abs = float((got - want).abs().max())
+            del got, want
+            torch.cuda.empty_cache()
+
+            def plain():
+                return block_lu.blocked_solve_factored(
+                    block_lu.blocked_factor(A), R)
+
+            def kernel():  # the factorization is in place: a fresh copy
+                return lu.lu_solve_multi(W.copy_(A), R)
+
+            # Alternate plain, kernel, kernel, plain; the copy is timed
+            # alone and taken off the kernel's readings.
+            p1 = cuda_ms(plain, reps=3, warmup=1)
+            k1 = cuda_ms(kernel, reps=3, warmup=1)
+            copy = cuda_ms(lambda: W.copy_(A), reps=3, warmup=1)
+            k2 = cuda_ms(kernel, reps=3, warmup=1)
+            p2 = cuda_ms(plain, reps=3, warmup=1)
+            del W
+            torch.cuda.empty_cache()
+            lib = library_ms(lambda c: A[:c], lambda c: R[:c], B, n, dtype)
+            bound = bound_ms(lu_flops(n, r) * B,
+                             (n * n + 2 * n * r) * B * A.element_size(),
+                             dtype)
+            timing[(B, n, r, dtype)] = {
+                "ms": min(k1, k2) - copy, "plain_ms": min(p1, p2),
+                "max_abs_err": max_abs, **lib, **bound}
+            emit({"phase": "kernel_time", "kernel": "lu_solve", "B": B,
+                  "n_pad": n, "r": r, "dtype": str(dtype),
+                  "kernel_ms": [k1 - copy, k2 - copy], "copy_ms": copy,
+                  "plain_ms": [p1, p2], "max_abs_err": max_abs, **lib,
+                  **bound})
+            del A, R
+            torch.cuda.empty_cache()
+    return worst, timing
+
+
 def sweep_params(circuit, batch: int = BATCH):
     """The sweep batch, made as the JAX package's bench makes it."""
     rng = np.random.default_rng(0)
@@ -480,6 +686,43 @@ def mesh_rows(n_nodes: int, branch: bool = False):
     return grid_circuit_rows(MESH_ROWS, -(-n_nodes // MESH_ROWS), branch)
 
 
+def randnet_rows(n_nodes: int = RANDNET_NODES, n_edges: int = RANDNET_EDGES,
+                 branch: bool = False):
+    """A random network of unit resistors between random node pairs
+    (``default_rng(0)``), a ground tie on every 50th node, driven by a 1 A
+    source: no band for RCM to find.  ``branch`` adds a voltage source and
+    a VCCS.  The JAX package's tests build the same graph
+    (``_random_graph_rows``) with a tie on every node."""
+    rng = np.random.default_rng(0)
+    rows = [["v", "A", "1", "n0", "g"]]
+    for k in range(n_edges):
+        a, b = rng.integers(0, n_nodes, 2)
+        if a != b:
+            rows.append([f"r{k}", "R", "1", f"n{a}", f"n{b}"])
+    rows += [[f"rg{j}", "R", "1", f"n{j}", "g"]
+             for j in range(0, n_nodes, RANDNET_TIE_EVERY)]
+    if branch:
+        rows += [["e1", "E", "2", "n1", "g"],
+                 ["d1", "VCCS", "0.5", "n3", "g", "n1", "g"]]
+    return rows
+
+
+def opchain_rows(n_stages: int):
+    """A chain of opamp-macromodel voltage followers buffering a
+    resistive ladder, as the JAX package's bench builds it
+    (``bench_opmodel_chain``): small, non-SPD, condition ~1e8."""
+    rows = [["vin", "E", "1", "in0", "g"]]
+    prev = "in0"
+    for k in range(n_stages):
+        out, nxt = f"o{k}", f"in{k + 1}"
+        rows += [[f"u{k}", "OPMODEL", "0", out, "g", prev, out],
+                 [f"rl{k}", "R", "100", out, "g"],
+                 [f"rs{k}", "R", "10", out, nxt],
+                 [f"rg{k}", "R", "1000", nxt, "g"]]
+        prev = nxt
+    return rows
+
+
 def median_call_ms(solver, params, reps: int = 5):
     """Per-call device times (CUDA events) of ``solver(params)`` after one
     warm-up call, and their median."""
@@ -509,15 +752,16 @@ def sample0_error(circuit, params_np, xs) -> float:
     return float(np.abs(x0 - ref).max() / np.abs(ref).max())
 
 
-def phase_path(label, rows, batch, method, kernel, rate_refines,
+def phase_path(label, rows, batch, method, kernels, rate_refines,
                extra_check=None):
     """Drive one main path through ``BatchedSolver(refine="auto")``: count
-    ``kernel``'s launches over exactly that call, check the answers (every
-    sample against the tier's raw f64 solve, sample 0 against numpy f64
-    dense, the f64 audit), then time the ``rate_refines`` tiers.  Returns
-    the launch count."""
+    the launches of each wrapper in ``kernels`` over exactly that call
+    (each must launch; with ``kernels=None`` no kernel of the repo may),
+    check the answers (every sample against the tier's raw f64 solve,
+    sample 0 against numpy f64 dense, the f64 audit), then time the
+    ``rate_refines`` tiers.  Returns the launch count."""
     from nodal_tpu_torch import BatchedSolver, Circuit, Netlist
-    from nodal_tpu_torch.ops import block_thomas, pcr, sband
+    from nodal_tpu_torch.ops import block_thomas, lu, pcr, sband
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -530,15 +774,24 @@ def phase_path(label, rows, batch, method, kernel, rate_refines,
     check(solver.method == method,
           f"{label}: method is {solver.method}, expected {method}")
 
-    pcr.pcr_solve.launches = 0
-    sband.sband_solve_multi.launches = 0
-    sband.sband_solve_multi.last_shape = None
-    block_thomas.band_solve_multi.launches = 0
-    block_thomas.band_solve_multi.last_shape = None
+    wrappers = (pcr.pcr_solve, sband.sband_solve_multi,
+                block_thomas.band_solve_multi, lu.lu_factor,
+                lu.lu_solve_factored)
+    for w in wrappers:
+        w.launches = 0
+        if hasattr(w, "last_shape"):
+            w.last_shape = None
     xs = solver(params)
     torch.cuda.synchronize()
-    launches = kernel.launches
-    check(launches > 0, f"{label}: the main path never launched its kernel")
+    if kernels is None:
+        launches = 0
+        check(all(w.launches == 0 for w in wrappers),
+              f"{label}: a kernel of the repo launched on the library path")
+    else:
+        launches = sum(w.launches for w in kernels)
+        check(all(w.launches > 0 for w in kernels),
+              f"{label}: the main path never launched a kernel of "
+              f"{[w.__name__ for w in kernels]}")
     check(xs.device.type == "cuda" and xs.dtype == torch.float64,
           f"{label}: output is {xs.dtype} on {xs.device}")
     check(xs.shape == (batch, circuit.stamps.n),
@@ -582,7 +835,11 @@ def phase_path(label, rows, batch, method, kernel, rate_refines,
 
     emit({"phase": "main_path", "path": label, "n": circuit.stamps.n,
           "nnz": circuit.stamps.nnz, "B": batch, "method": solver.method,
-          "setup_s": setup_s, "launches": launches, "max_residual": max_res,
+          "setup_s": setup_s, "launches": launches,
+          "solver": ("the library's pivoted LU (torch.linalg.solve)"
+                     if kernels is None else
+                     [w.__name__ for w in kernels]),
+          "max_residual": max_res,
           "sample0_rel_err_vs_f64": err0,
           "batch_max_rel_err_vs_f64": float(err_auto[worst]),
           "worst_sample": worst,
@@ -633,7 +890,7 @@ def branch_check(circuit, xs, kernel):
     from nodal_tpu_torch.batch import BatchResult
 
     shape = kernel.last_shape
-    check(shape is not None and shape[3] == 3,
+    check(shape is not None and shape[-1] == 3,
           f"branch: the kernel's last launch had shape {shape}, "
           "expected 3 right-hand sides")
     current = BatchResult(xs, circuit.netlist).current("e1")
@@ -672,7 +929,7 @@ def phase_profile(label, rows, batch):
     kernels = [e for e in events if e.get("cat") == "kernel"]
     check(len(kernels) > 0, f"profile {label}: no kernel in the trace")
     kinds = {"block_thomas": ("block_thomas",), "sband": ("sband",),
-             "pcr": ("pcr",),
+             "pcr": ("pcr",), "block_lu": ("block_lu",),
              "gathers": ("index", "gather", "scatter"),
              "reductions": ("reduce", "sum", "max"),
              "dense algebra": ("gemm", "gemv", "getrf", "getrs", "trsm",
@@ -734,8 +991,8 @@ def main() -> None:
     sys.path.insert(0, str(ROOT))
     try:
         import nodal_tpu_torch
-        from nodal_tpu_torch.ops import (band, block_thomas, pcr, sband,
-                                         scalar_band, tridiag)
+        from nodal_tpu_torch.ops import (band, block_lu, block_thomas, lu,
+                                         pcr, sband, scalar_band, tridiag)
         from nodal_tpu_torch.utils import kernels
         from nodal_tpu_torch.utils.gridgen import ladder_rows
     except ImportError as e:
@@ -764,23 +1021,25 @@ def main() -> None:
     worst, timing = phase_kernels(pcr, tridiag)
     sb_worst, sb_timing = phase_sband_kernel(sband, scalar_band)
     bt_worst, bt_timing = phase_band_kernel(block_thomas, band)
+    lu_worst, lu_timing = phase_lu_kernel(lu, block_lu)
     emit({"phase": "kernel_check_worst",
           "pcr_solve": {str(k): v for k, v in worst.items()},
           "sband_solve": {str(k): v for k, v in sb_worst.items()},
-          "band_solve": {str(k): v for k, v in bt_worst.items()}})
+          "band_solve": {str(k): v for k, v in bt_worst.items()},
+          "lu_solve": {str(k): v for k, v in lu_worst.items()}})
     launches = phase_path("ladder", ladder_rows(LADDER_RUNGS), BATCH,
-                          "tridiag", pcr.pcr_solve, ("auto", False))
+                          "tridiag", (pcr.pcr_solve,), ("auto", False))
+    sb = (sband.sband_solve_multi,)
     sb_launches = phase_path("mesh", mesh_rows(MESH_NODES), BATCH, "sband",
-                             sband.sband_solve_multi, ("auto", False))
+                             sb, ("auto", False))
     for n_nodes in MIDSIZE_NODES:
         sb_launches += phase_path(f"midsize{n_nodes}", mesh_rows(n_nodes),
-                                  MIDSIZE_BATCH, "sband",
-                                  sband.sband_solve_multi, ("auto",))
+                                  MIDSIZE_BATCH, "sband", sb, ("auto",))
     sb_launches += phase_path(
         "branch", mesh_rows(MESH_NODES, branch=True), BATCH, "schur",
-        sband.sband_solve_multi, ("auto", False),
+        sb, ("auto", False),
         functools.partial(branch_check, kernel=sband.sband_solve_multi))
-    bt = block_thomas.band_solve_multi
+    bt = (block_thomas.band_solve_multi,)
     bt_launches = phase_path("lattice", lattice_rows(20, 10, 10),
                              GENERAL_BATCH, "band", bt, ("auto", False))
     bt_launches += phase_path("widemesh", grid_circuit_rows(100, 100),
@@ -790,11 +1049,24 @@ def main() -> None:
     bt_launches += phase_path(
         "widebranch", grid_circuit_rows(64, 64, branch=True), GENERAL_BATCH,
         "schur", bt, ("auto", False),
-        functools.partial(branch_check, kernel=bt))
+        functools.partial(branch_check, kernel=block_thomas.band_solve_multi))
+    lus = (lu.lu_factor, lu.lu_solve_factored)
+    lu_launches = phase_path("randnet", randnet_rows(), GENERAL_BATCH,
+                             "block", lus, ("auto", False))
+    lu_launches += phase_path(
+        "randnet4k", randnet_rows(RANDNET4K_NODES, RANDNET4K_EDGES),
+        RANDNET4K_BATCH, "block", lus, ("auto", False))
+    lu_launches += phase_path(
+        "randbranch", randnet_rows(branch=True), GENERAL_BATCH, "schur",
+        lus, ("auto", False),
+        functools.partial(branch_check, kernel=lu.lu_solve_factored))
+    phase_path("opchain", opchain_rows(OPCHAIN_STAGES), BATCH, "dense", None,
+               ("auto", False))
     phase_band_accuracy("lattice", lattice_rows(20, 10, 10), GENERAL_BATCH)
     phase_band_accuracy("widemesh", grid_circuit_rows(100, 100),
                         MIDSIZE_BATCH)
     phase_profile("lattice", lattice_rows(20, 10, 10), GENERAL_BATCH)
+    phase_profile("randnet", randnet_rows(), GENERAL_BATCH)
 
     emit(card)  # again beside the summary, which a tail of the output keeps
     emit({"kernels": [
@@ -810,6 +1082,10 @@ def main() -> None:
                      "nodal_tpu/ops/pallas_band.py:300 and "
                      "nodal_tpu/ops/pallas_band.py:476", bt_launches,
                      bt_timing[(GENERAL_BATCH, 16, 128, torch.float32)]),
+        kernel_entry("lu_solve", "nodal_tpu_torch/csrc/block_lu.cu",
+                     "nodal_tpu/ops/pallas_block_lu.py:345 and "
+                     "nodal_tpu/ops/pallas_block_lu.py:408", lu_launches,
+                     lu_timing[(GENERAL_BATCH, 1024, 1, torch.float32)]),
     ]})
     check("jax" not in sys.modules, "jax was imported")
     emit({"ok": True, "device": {"platform": "gpu",

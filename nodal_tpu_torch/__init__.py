@@ -4,12 +4,12 @@ hand-written CUDA kernels for the NVIDIA H100 (sm_90a).
 A port of ``nodal_tpu`` (JAX on a TPU), which stays beside it as the
 reference.  This package imports neither ``jax`` nor ``nodal_tpu``: the
 host-only modules it needs (constants, netlist, stamp compiler, grid
-generators, the RCM ordering and the scalar-band plan) are copies.
-Ported so far: the batched sweeps of ladders, 2-D meshes and meshes with
-branch equations — netlist compile, stamp values, tridiagonal and scalar
-band assembly, the CUDA PCR and scalar-band LDLᵀ kernels, the schur
-tier's narrow-node-block branch and the exact-f64 contract layer of
-``BatchedSolver(refine="auto")``.
+generators, the RCM ordering and the band plans) are copies.
+Ported so far: the batched parameter sweeps through every tier of
+``BatchedSolver`` — netlist compile, stamp values, tridiagonal, band and
+dense assembly, the CUDA PCR, scalar-band LDLᵀ, block-Thomas and blocked-LU
+kernels, the schur tier's sub-branches, the library-LU ``dense`` tier and
+the exact-f64 contract layer of ``BatchedSolver(refine="auto")``.
 
     from nodal_tpu_torch import BatchedSolver, Circuit, Netlist
     from nodal_tpu_torch.utils.gridgen import grid_rows

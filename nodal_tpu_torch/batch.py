@@ -8,20 +8,20 @@ is the batch (the JAX package's ``vmap``).  Typical use:
     solver = BatchedSolver(circuit, device="cuda")
     xs = solver(params_batch)                          # [B, n] solutions
 
-Ported so far: the ``tridiag`` tier (chain and ladder topologies: band
-assembly, then the CUDA PCR kernel of :mod:`nodal_tpu_torch.ops.pcr`), the
-``sband`` tier (narrow-band resistive circuits such as 2-D meshes: scalar
-band assembly, then the CUDA scalar-band LDLᵀ kernel of
-:mod:`nodal_tpu_torch.ops.sband`), the ``band`` tier (wider resistive
+Every tier of the JAX package's ``BatchedSolver`` is ported: ``tridiag``
+(chain and ladder topologies: band assembly, then the CUDA PCR kernel of
+:mod:`nodal_tpu_torch.ops.pcr`), ``sband`` (narrow-band resistive circuits
+such as 2-D meshes: scalar band assembly, then the CUDA scalar-band LDLᵀ
+kernel of :mod:`nodal_tpu_torch.ops.sband`), ``band`` (wider resistive
 bands such as large meshes and 3-D lattices: block-band assembly, then the
-CUDA block-Thomas kernel of :mod:`nodal_tpu_torch.ops.block_thomas`), the
-``schur`` tier's banded sub-branches (branch-equation circuits whose node
-block is a narrow or a block band: the same kernels with the border
-columns as extra right-hand sides), and the exact-f64 defect-correction
-contract layer that ``refine="auto"`` wraps around each.  The ``block``
-and ``dense`` tiers, the schur tier's dense sub-branches, and the adjoint,
-Monte Carlo and sensitivities raise ``NotImplementedError`` or are absent
-(ROADMAP.md Queue 1).
+CUDA block-Thomas kernel of :mod:`nodal_tpu_torch.ops.block_thomas`),
+``block`` (unbanded resistive circuits: dense assembly, then the CUDA
+blocked-LU kernel of :mod:`nodal_tpu_torch.ops.lu`), ``schur``
+(branch-equation circuits with an SPD node block: one of those kernels
+with the border columns as extra right-hand sides) and ``dense`` (what is
+left: the library's pivoted LU), and the exact-f64 defect-correction
+contract layer that ``refine="auto"`` wraps around each.  The adjoint,
+Monte Carlo and sensitivities are absent (ROADMAP.md Queue 1).
 
 Device policy: a solver runs on the device it is given (default
 ``"cuda"``, which raises when CUDA is absent).  Every tensor of a solve,
@@ -43,8 +43,11 @@ from nodal_tpu_torch.ops import dense_solve
 from nodal_tpu_torch.ops.assemble import (assemble_dense, assemble_tridiag,
                                           bandwidth, gather_fold)
 from nodal_tpu_torch.ops.band import band_plan, node_band_plan
+from nodal_tpu_torch.ops.block_lu import _BLOCK, schur_eliminate
 from nodal_tpu_torch.ops.block_thomas import (MAX_R, band_solve,
                                               band_solve_multi)
+from nodal_tpu_torch.ops.lu import (lu_factor, lu_solve_factored,
+                                    lu_solve_multi)
 from nodal_tpu_torch.ops.pcr import pcr_solve
 from nodal_tpu_torch.ops.sband import (sband_fits, sband_solve,
                                        sband_solve_multi)
@@ -270,11 +273,18 @@ def _escalating_solver(stamps: StampTensors, inner, transpose: bool = False):
     return run
 
 
-def make_dense_core(stamps: StampTensors, dtype):
+def make_dense_core(stamps: StampTensors, dtype, refine: bool = False):
     """``core(pb, rhs=None, transpose=False)``: the dense pivoted-LU MNA
-    solve in ``dtype``, the contract layer's rescue.  (The JAX package's
-    f32-factor-plus-refinement variant exists for the TPU, which has no f64
-    LU; the H100 has one.)"""
+    solve, the ``dense`` tier and (f64, no ``refine``) the contract layer's
+    rescue.
+
+    Raw: assembly and ``torch.linalg.solve`` in ``dtype``.  ``refine``: the
+    matrices cast to f32, an f32 pivoted solve, then three exact-COO f64
+    defect passes on the same f32 matrices, f64 out (the JAX package's
+    variant).  The factorization
+    is the library's pivoted LU, as XLA's is in the JAX package: no TPU
+    kernel of the repo computes it, so this is no kernel port.
+    """
 
     def core(params_batch, rhs=None, transpose=False):
         G, b = assemble_dense(stamps, params_batch, dtype=dtype)
@@ -282,7 +292,17 @@ def make_dense_core(stamps: StampTensors, dtype):
             b = rhs.to(b.dtype)
         if transpose:
             G = G.transpose(1, 2)
-        return dense_solve.solve_dense(G, b.unsqueeze(-1)).squeeze(-1)
+        if refine:
+            G, b = G.to(torch.float32), b.to(torch.float32)
+
+        def resolve(r):
+            return dense_solve.solve_dense(G, r.unsqueeze(-1)).squeeze(-1)
+
+        if not refine:
+            return resolve(b)
+        st = _transposed_stamps(stamps) if transpose else stamps
+        return _coo_defect_refine(st, params_batch, rhs, resolve(b),
+                                  resolve, iters=3)
 
     return core
 
@@ -365,6 +385,42 @@ def _band_solver(stamps: StampTensors, plan, dtype, refine: bool, solve):
             stamps, params_batch, rhs, x,
             lambda r: plan.unpermute(
                 solve(W, plan.rhs_to_band(r, torch.float32))))
+
+    return solve_batch
+
+
+def _block_solver(stamps: StampTensors, dtype, refine: bool):
+    """The solve ``(pb, rhs=None) -> [B, n]`` of the ``block`` tier: dense
+    assembly straight into the 128-padded shape, then the no-pivot blocked
+    LU (:func:`lu_factor` and :func:`lu_solve_factored`: the CUDA kernel on
+    the card, the plain ``blocked_factor`` / ``blocked_solve_factored`` on
+    the CPU), then the first n unknowns.
+
+    Raw: assembly and the LU in ``dtype`` (f64 runs the kernel's f64
+    instantiation on the card).  ``refine``: f32 assembly, one f32
+    factorization, and two exact-COO f64 defect passes, each a solve on
+    the same factor; f64 out.
+    """
+    n = stamps.n
+    n_pad = -(-n // _BLOCK) * _BLOCK
+
+    def rhs_cols(v):  # [B, n] -> [B, n_pad, 1]
+        return torch.nn.functional.pad(v, (0, n_pad - n)).unsqueeze(-1)
+
+    def solve_batch(params_batch, rhs=None):
+        G, b = assemble_dense(stamps, params_batch,
+                              dtype=torch.float32 if refine else dtype,
+                              pad_to=n_pad)
+        if rhs is not None:
+            b = rhs_cols(rhs.to(G.dtype))[..., 0]
+        F = lu_factor(G)
+        del G  # on the card F is G, factored in place
+        x = lu_solve_factored(F, b.unsqueeze(-1))[:, :n, 0]
+        if not refine:
+            return x
+        return _coo_defect_refine(
+            stamps, params_batch, rhs, x,
+            lambda r: lu_solve_factored(F, rhs_cols(r))[:, :n, 0])
 
     return solve_batch
 
@@ -476,20 +532,87 @@ def _schur_band_assembler(stamps: StampTensors, dtype, bplan):
     return blocks
 
 
-def _make_schur_band_solver(assemble, multi_solve, nplan, nk: int,
-                            kbe: int):
-    """(solve_batch, solve_rhs_t) for the banded Schur paths.
+@dataclasses.dataclass(frozen=True)
+class _PaddedPlan:
+    """The plan interface (``n_pad``, ``rhs_to_band``, ``unpermute``) of an
+    unreordered node block of ``n`` unknowns padded to ``n_pad``: the
+    schur tier's dense node block."""
 
-    ``solve_batch(pb, rhs=None)`` solves G x = b (or the given natural-order
-    RHS); ``solve_rhs_t(pb, rhs)`` solves the transposed system Gᵀλ = rhs.
-    The node block A is symmetric (SPD, the Schur precondition), so
-    transposition only swaps the border blocks B ↔ Cᵀ and D → Dᵀ; the same
-    multi-RHS band solve ``multi_solve`` (Y = A⁻¹[B | bk]; the scalar-band
-    or the block-Thomas kernel, as the plan is) and Schur algebra run
-    unchanged.
-    The Schur algebra is plain ``torch.matmul`` / ``torch.linalg.solve``
-    (the JAX package leaves it to XLA at "highest" precision): it assumes
-    PyTorch's default of no TF32 in float32 matmuls.
+    n: int
+    n_pad: int
+
+    def rhs_to_band(self, rhs: torch.Tensor, dtype) -> torch.Tensor:
+        """The first n columns of a natural-order [B, m] RHS, zero-padded
+        to [B, n_pad]."""
+        return torch.nn.functional.pad(rhs[:, :self.n].to(dtype),
+                                       (0, self.n_pad - self.n))
+
+    def unpermute(self, x: torch.Tensor) -> torch.Tensor:
+        return x[..., :self.n]
+
+
+def _schur_block_assembler(stamps: StampTensors, dtype, nk_pad: int):
+    """``blocks(pb) -> (A, Bm, C, D, bk, bb)``: the MNA 2×2 partition with
+    a dense node block, the layout the blocked LU takes.
+
+    A [B, nk_pad, nk_pad] has a unit diagonal on the pad; Bm
+    [B, nk_pad, kbe], C [B, kbe, nk_pad] and bk [B, nk_pad] are zero past
+    row (column) nk; D [B, kbe, kbe] and bb [B, kbe].  Each is a
+    :func:`gather_fold` of the stamp values, so f64 assembly equals the
+    JAX package's ``_schur_block_assembler`` (whose Bm, C and bk stop at
+    nk) exactly.
+    """
+    nk = stamps.n_kcl
+    kbe = stamps.n - nk
+    gr = stamps.g_rows.astype(np.int64)
+    gc = stamps.g_cols.astype(np.int64)
+    rr = stamps.rhs_rows.astype(np.int64)
+    iA = np.nonzero((gr < nk) & (gc < nk))[0]
+    iB = np.nonzero((gr < nk) & (gc >= nk))[0]
+    iC = np.nonzero((gr >= nk) & (gc < nk))[0]
+    iD = np.nonzero((gr >= nk) & (gc >= nk))[0]
+    ik = np.nonzero(rr < nk)[0]
+    ib = np.nonzero(rr >= nk)[0]
+    folds = {
+        f"schurd_A{nk_pad}": (gr[iA] * nk_pad + gc[iA], iA, nk_pad * nk_pad),
+        f"schurd_B{nk_pad}": (gr[iB] * kbe + gc[iB] - nk, iB, nk_pad * kbe),
+        f"schurd_C{nk_pad}": ((gr[iC] - nk) * nk_pad + gc[iC], iC,
+                              kbe * nk_pad),
+        "schurd_D": ((gr[iD] - nk) * kbe + gc[iD] - nk, iD, kbe * kbe),
+    }
+    pad = np.arange(nk, nk_pad, dtype=np.int64) * (nk_pad + 1)
+
+    def blocks(params_batch):
+        g_vals, rhs_vals = stamp_values(stamps, params_batch.to(dtype))
+        B = g_vals.shape[0]
+        A, Bm, C, D = (gather_fold(stamps, name, g_vals, *tables)
+                       for name, tables in folds.items())
+        if len(pad):
+            A.index_fill_(1, device_table(stamps, f"schurd_pad{nk_pad}", pad,
+                                          A.device, torch.long), 1.0)
+        bk = gather_fold(stamps, f"schurd_bk{nk_pad}", rhs_vals, rr[ik], ik,
+                         nk_pad)
+        bb = gather_fold(stamps, "schurd_bb", rhs_vals, rr[ib] - nk, ib, kbe)
+        return (A.view(B, nk_pad, nk_pad), Bm.view(B, nk_pad, kbe),
+                C.view(B, kbe, nk_pad), D.view(B, kbe, kbe), bk, bb)
+
+    return blocks
+
+
+def _make_schur_solver(assemble, multi_solve, nplan, nk: int, kbe: int):
+    """(solve_batch, solve_rhs_t) of the schur tier's sub-branches.
+
+    ``assemble`` gives the node block in ``nplan``'s layout (a band, or the
+    dense padded block of :class:`_PaddedPlan`) with the border blocks in
+    the same row order; ``multi_solve`` is the node block's multi-RHS
+    solve (the scalar-band, block-Thomas or blocked-LU kernel).
+    ``solve_batch(pb, rhs=None)`` solves G x = b (or the given
+    natural-order RHS); ``solve_rhs_t(pb, rhs)`` solves the transposed
+    system Gᵀλ = rhs.  The node block A is symmetric (SPD, the Schur
+    precondition), so transposition only swaps the border blocks B ↔ Cᵀ
+    and D → Dᵀ; the same solve Y = A⁻¹[B | bk] and Schur algebra
+    (:func:`schur_eliminate`, which assumes PyTorch's default of no TF32
+    in float32 matmuls) run unchanged.
     """
 
     def core(params_batch, rhs=None, transpose=False):
@@ -502,14 +625,8 @@ def _make_schur_band_solver(assemble, multi_solve, nplan, nk: int,
         if transpose:
             Bm, C, D = C.transpose(1, 2), Bm.transpose(1, 2), D.transpose(1, 2)
         R = torch.cat([Bm, rk.unsqueeze(-1)], dim=-1).contiguous()
-        Y = multi_solve(W, R)
-        YB = Y[..., :kbe]
-        yb = Y[..., kbe]
-        S = D - C @ YB
-        rhs_b = rb - (C @ yb.unsqueeze(-1))[..., 0]
-        xb = torch.linalg.solve(S, rhs_b.unsqueeze(-1))[..., 0]
-        xk_band = yb - (YB @ xb.unsqueeze(-1))[..., 0]
-        return torch.cat([nplan.unpermute(xk_band), xb], dim=-1)
+        xk, xb = schur_eliminate(multi_solve(W, R), C, D, rb, kbe)
+        return torch.cat([nplan.unpermute(xk), xb], dim=-1)
 
     return core, (lambda pb, rhs: core(pb, rhs, transpose=True))
 
@@ -524,13 +641,6 @@ def _resolve_device(device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to nodal_tpu_torch yet (ROADMAP.md Queue 1); "
-        "ported: the 'tridiag', 'sband' and 'band' tiers and the 'schur' "
-        "tier's banded sub-branches")
 
 
 class BatchedSolver:
@@ -550,11 +660,19 @@ class BatchedSolver:
       e.g. large 2-D meshes and 3-D lattices): block-band assembly with
       kb ∈ {128, 256, 384} + the no-pivot block-Thomas solve in the CUDA
       kernel (the plain torch solver for CPU tensors), O(n·kb²) work.
-    * ``schur`` — branch-equation circuits whose resistive node block is
-      SPD (a host-side Cholesky probe) and a narrow or a block band: the
-      scalar-band or block-Thomas kernel solves A⁻¹[B | b] with the border
-      columns as extra right-hand sides, then a small pivoted solve on the
-      branch Schur complement.
+    * ``block`` — resistive circuits without a band (half-bandwidth over
+      384, e.g. random networks), n ≤ 16384: dense assembly padded to a
+      multiple of 128 + the no-pivot blocked LU in the CUDA kernel (the
+      plain torch solver for CPU tensors), O(n³) work.
+    * ``schur`` — branch-equation circuits with n_kcl ≥ 256 whose
+      resistive node block is SPD (a host-side Cholesky probe): the
+      scalar-band, block-Thomas or blocked-LU kernel, as the node block
+      bands, solves A⁻¹[B | b] with the border columns as extra
+      right-hand sides, then a small pivoted solve on the branch Schur
+      complement.
+    * ``dense`` — everything else (small or non-SPD node blocks, e.g.
+      opamp macromodels), n ≤ 16384: dense assembly + the library's
+      pivoted LU (``torch.linalg.solve``).
 
     Args:
         circuit: the compiled circuit, or bare :class:`StampTensors`.
@@ -616,7 +734,7 @@ class BatchedSolver:
                         f"{_DENSE_BATCH_MAX_N}); use Circuit.solve (sparse "
                         "AMG-CG), grid_solve for regular grids, or "
                         "equivalent_resistance_stamps for probe solves")
-                raise _not_ported("the 'block' tier this circuit needs")
+                method = "block"
             elif stamps.n_kcl >= 256 and _schur_supported(stamps):
                 method = "schur"
             elif stamps.n > _DENSE_BATCH_MAX_N:
@@ -624,7 +742,7 @@ class BatchedSolver:
                     f"circuit needs the dense batch tier but n={stamps.n} "
                     f"exceeds its bound (n <= {_DENSE_BATCH_MAX_N})")
             else:
-                raise _not_ported("the 'dense' tier this circuit needs")
+                method = "dense"
         elif method in ("tridiag", "sband", "band", "block") \
                 and not resistive:
             raise ValueError(
@@ -661,8 +779,6 @@ class BatchedSolver:
                 f"method='tridiag' requires bandwidth <= 1; this circuit "
                 f"has bandwidth {bandwidth(stamps)}"
             )
-        if method in ("block", "dense"):
-            raise _not_ported(f"method={method!r}")
         self.method = method
 
         if method == "tridiag":
@@ -688,13 +804,20 @@ class BatchedSolver:
             solve_batch = _band_solver(stamps, plan, dtype, bool(refine),
                                        solve)
             self._finalize(solve_batch, solve_batch)  # symmetric
-        else:
+        elif method == "block":
+            solve_batch = _block_solver(stamps, dtype, bool(refine))
+            self._finalize(solve_batch, solve_batch)  # symmetric
+        elif method == "schur":
             self._finalize(*self._schur_solvers(dtype, bool(refine)))
+        else:
+            core = make_dense_core(stamps, dtype, bool(refine))
+            self._finalize(core,
+                           lambda pb, rhs: core(pb, rhs, transpose=True))
 
     def _schur_solvers(self, dtype, refine: bool):
         """(solve_batch, solve_rhs_t) of the ``schur`` tier.
 
-        Ported: the banded sub-branches, in the JAX package's order.
+        The sub-branches, in the JAX package's order:
 
         * The narrow node block: a scalar-band plan whose W1 band slots
           plus the kbe + 1 border and RHS columns fit the scalar-band
@@ -704,48 +827,53 @@ class BatchedSolver:
         * The band scan: a block-band plan with nb ≥ 2 and nk > 2048, any
           number of right-hand sides (the block-Thomas wrapper launches
           once per 128 of them).
+        * Any other node block: dense, 128-padded, solved by the blocked
+          LU (the CUDA kernel on the card, with kbe + 1 right-hand sides,
+          any kbe; on the CPU the plain ``blocked_factor`` and
+          ``blocked_solve_factored``, which is ``schur_solve``'s
+          arithmetic).  One sub-branch takes the place of the JAX
+          package's Pallas LU multi (TPU, kbe < 128, nk ≤ 1024) and dense
+          ``schur_solve`` ones.
 
-        The last two run the block-Thomas kernel on the card (the plain
-        solver on the CPU).  ``refine`` wraps both directions in two
-        exact-COO f64 defect passes over f32 solves (f64 out); otherwise
-        the solve runs in ``dtype``.  The JAX package's Pallas-LU and dense
-        ``schur_solve`` sub-branches are not ported.  (On the CPU the JAX
-        package takes its dense sub-branch for node blocks up to 2048
-        nodes and a direct f64 band scan for ``refine=True``; the tier is
-        the same.)
+        The middle two run the block-Thomas kernel on the card (the plain
+        solver on the CPU).  ``refine`` wraps both directions in
+        exact-COO f64 defect passes over f32 solves (f64 out): two on the
+        banded node blocks, three on the dense one, as the JAX package's
+        sub-branches take; otherwise the solve runs in ``dtype``.  (On the
+        CPU the JAX package takes its dense sub-branch for node blocks up
+        to 2048 nodes and a direct f64 band scan for ``refine=True``; the
+        tier is the same.)
         """
         stamps = self.stamps
         nk = stamps.n_kcl
         kbe = stamps.n - nk
+        sdtype = torch.float32 if refine else dtype
         nsplan = node_sband_plan(stamps)
         if nsplan is not None and sband_fits(nsplan.W1, kbe + 1):
-            plan, multi = nsplan, sband_solve_multi
+            plan, multi, iters = nsplan, sband_solve_multi, 2
+            assemble = _schur_band_assembler(stamps, sdtype, plan)
         elif (nplan := node_band_plan(stamps)) is not None \
                 and nplan.nb >= 2 and (
                 (nplan.kb == 128 or nk > 1024) and kbe + 1 <= MAX_R
                 or nk > 2048):
-            plan, multi = nplan, band_solve_multi
+            plan, multi, iters = nplan, band_solve_multi, 2
+            assemble = _schur_band_assembler(stamps, sdtype, plan)
         else:
-            raise _not_ported(
-                "the schur tier's Pallas-LU and dense sub-branches, which "
-                "this circuit's node block needs (no narrow or block band "
-                f"the banded sub-branches take, with its {kbe} border "
-                "columns)")
-        assemble = _schur_band_assembler(
-            stamps, torch.float32 if refine else dtype, plan)
-        core_b, core_t = _make_schur_band_solver(assemble, multi, plan, nk,
-                                                 kbe)
+            plan = _PaddedPlan(nk, -(-nk // _BLOCK) * _BLOCK)
+            multi, iters = lu_solve_multi, 3
+            assemble = _schur_block_assembler(stamps, sdtype, plan.n_pad)
+        core_b, core_t = _make_schur_solver(assemble, multi, plan, nk, kbe)
         if not refine:
             return core_b, core_t
         stamps_t = _transposed_stamps(stamps)
 
         def solve_batch(pb, rhs=None):
             return _coo_defect_refine(stamps, pb, rhs, core_b(pb, rhs),
-                                      lambda r: core_b(pb, r))
+                                      lambda r: core_b(pb, r), iters)
 
         def solve_rhs_t(pb, rhs):
             return _coo_defect_refine(stamps_t, pb, rhs, core_t(pb, rhs),
-                                      lambda r: core_t(pb, r))
+                                      lambda r: core_t(pb, r), iters)
 
         return solve_batch, solve_rhs_t
 

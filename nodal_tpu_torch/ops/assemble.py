@@ -18,26 +18,37 @@ def _as_params(params: torch.Tensor, dtype) -> torch.Tensor:
     return params if dtype is None else params.to(dtype)
 
 
-def assemble_dense(stamps: StampTensors, params: torch.Tensor, dtype=None):
-    """Dense MNA systems ``(G [B, n, n], b [B, n])`` for ``[B, n_components]``
-    params, by one scatter-add per batch.  Used only by the pivoted rescue
-    of the contract layer.
+def assemble_dense(stamps: StampTensors, params: torch.Tensor, dtype=None,
+                   pad_to: int | None = None):
+    """Dense MNA systems ``(G [B, m, m], b [B, m])`` for
+    ``[B, n_components]`` params, m = ``pad_to`` or n.
+
+    Serves the ``block`` and ``dense`` tiers and the contract layer's
+    pivoted rescue.  ``pad_to`` assembles straight into the padded shape
+    with a unit diagonal on the pad (the no-pivot blocked LU needs
+    128-multiples), so no second copy of a multi-GB batch is made.  The
+    entries sharing a slot are summed by :func:`gather_fold` in the JAX
+    package's order, deterministically on every device (an atomic
+    scatter-add would change the f32 sums from run to run).
     """
     params = _as_params(params, dtype)
     g_vals, rhs_vals = stamp_values(stamps, params)
     n = stamps.n
+    m = n if pad_to is None else pad_to
+    if m < n:
+        raise ValueError(f"pad_to = {m} is below n = {n}")
     B = params.shape[0]
-    dev, dt = params.device, params.dtype
-    flat = device_table(stamps, "g_flat",
-                        stamps.g_rows.astype(np.int64) * n + stamps.g_cols,
-                        dev, torch.long)
-    G = torch.zeros(B, n * n, dtype=dt, device=dev)
-    G.index_add_(1, flat, g_vals)
-    G = G.view(B, n, n)
-    b = torch.zeros(B, n, dtype=dt, device=dev)
-    b.index_add_(1, device_table(stamps, "rhs_rows", stamps.rhs_rows, dev,
-                                 torch.long), rhs_vals)
-    return G, b
+    G = gather_fold(stamps, f"dense_g{m}", g_vals,
+                    stamps.g_rows.astype(np.int64) * m + stamps.g_cols,
+                    np.arange(len(stamps.g_rows)), m * m)
+    if m > n:
+        pad = np.arange(n, m, dtype=np.int64) * (m + 1)
+        G.index_fill_(1, device_table(stamps, f"dense_pad{m}", pad,
+                                      params.device, torch.long), 1.0)
+    b = gather_fold(stamps, f"dense_b{m}", rhs_vals,
+                    stamps.rhs_rows.astype(np.int64),
+                    np.arange(len(stamps.rhs_rows)), m)
+    return G.view(B, m, m), b
 
 
 def bandwidth(stamps: StampTensors) -> int:

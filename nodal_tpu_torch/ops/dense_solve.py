@@ -1,10 +1,9 @@
 """Dense MNA solves.
 
-Counterpart of ``nodal_tpu/ops/dense_solve.py:solve_dense``.  Here it serves
-only the pivoted rescue of the contract layer (``batch._escalating_solver``),
-in float64: the H100 has native f64, so no f32-LU-plus-refinement detour is
-needed.  As in the JAX package, the LU runs outside any kernel of this
-repository.
+Counterpart of ``nodal_tpu/ops/dense_solve.py:solve_dense``.  It serves the
+``dense`` tier (``batch.make_dense_core``) and the pivoted f64 rescue of the
+contract layer (``batch._escalating_solver``).  As in the JAX package, the
+LU runs outside any kernel of this repository: it is the library's.
 """
 
 from __future__ import annotations

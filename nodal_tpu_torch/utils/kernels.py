@@ -1,15 +1,16 @@
 """Build and load the port's CUDA kernels.
 
 Every ``*.cu`` file under ``nodal_tpu_torch/csrc/`` is compiled by ``nvcc``
-for ``sm_90a`` into one shared library with a plain C interface, which is
+for ``sm_90a`` (with ``csrc/`` on the include path for any ``*.cuh``
+header) into one shared library with a plain C interface, which is
 loaded with ``ctypes`` (no PyTorch headers, so the build takes seconds).
 The build runs at the first CUDA call, never at import.
 
 * The library lands in ``nodal_tpu_torch/_build/`` (git-ignored), a
   directory created with mode 0700 and refused if another user owns it or
   it is group- or world-writable, so no planted library is ever loaded.
-* Its file name carries a hash of the sources and the compiler flags, so a
-  library built from other sources is never loaded.
+* Its file name carries a hash of the sources, headers included, and the
+  compiler flags, so a library built from other sources is never loaded.
 * A missing ``nvcc`` or a failed build raises ``RuntimeError`` with the
   compiler's output.  There is no fallback to another implementation.
 """
@@ -44,10 +45,16 @@ _SIGNATURES = {
        for name in ("sband_solve_f32", "sband_solve_f64")},
     **{name: ([_P] * 4 + [_I] * 6 + [_P], _I)
        for name in ("block_thomas_f32", "block_thomas_f64")},
+    **{name: ([_P] * 2 + [_I] * 2 + [_P], _I)
+       for name in ("block_lu_factor_f32", "block_lu_factor_f64")},
+    **{name: ([_P] * 3 + [_I] * 3 + [_P], _I)
+       for name in ("block_lu_solve_f32", "block_lu_solve_f64")},
 }
 
 
 def _sources() -> list[Path]:
+    """Every source and header under ``csrc/``: what the library hash
+    covers.  Only the ``.cu`` files are compiled."""
     return sorted(p for p in CSRC_DIR.iterdir()
                   if p.suffix in (".cu", ".cuh"))
 
@@ -92,7 +99,8 @@ def build() -> Path:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=_private_build_dir())
     os.close(fd)
     try:
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", tmp,
+               *(str(p) for p in _sources() if p.suffix == ".cu")]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(

@@ -1,8 +1,9 @@
 """The port's batched ladder sweep end to end against the JAX package: the
 raw tier, the exact-f64 contract layer, the refined tier, the audit, the
-pivoted rescue and the refusals of tiers not ported yet (the mesh, wide-band
-and branch tiers have their own files, test_torch_sband.py,
-test_torch_band.py and test_torch_schur.py)."""
+pivoted rescue, the unbanded tiers' selection and the refusals of forced
+tiers (the mesh, wide-band, branch and unbanded tiers have their own files,
+test_torch_sband.py, test_torch_band.py, test_torch_schur.py and
+test_torch_block_lu.py)."""
 
 import numpy as np
 import pytest
@@ -223,47 +224,65 @@ def _random_graph_rows(n, edges, seed, extra=()):
 RANDOM_GRAPH = _random_graph_rows(1200, 4800, seed=0)
 
 
+def _sweep(jc, B=3, seed=3):
+    base = jc.stamps.params
+    rng = np.random.default_rng(seed)
+    return (base * (1.0 + 0.05 * rng.standard_normal((B, len(base))))
+            ).astype(np.float32).astype(np.float64)
+
+
 @pytest.mark.parametrize("rows,jax_method", [
-    # An unbanded resistive circuit (the id names the wide mesh this case
-    # held before the band tier took meshes; kept so the test id is stable).
-    pytest.param(RANDOM_GRAPH, "block", id="mesh"),
+    pytest.param(RANDOM_GRAPH, "block", id="unbanded"),
     pytest.param(ladder_rows(8)[1:] + [["v0", "E", "1", "n0", "g"]],
                  "dense", id="voltage-source"),
     # An SPD node block of 300 nodes that neither banded schur sub-branch
-    # takes: the JAX package's dense schur sub-branches apply.
+    # takes: the dense node block on the blocked LU.
     pytest.param(_random_graph_rows(300, 900, seed=1,
                                     extra=[["e1", "E", "2", "n1", "g"]]),
                  "schur", id="branch-wide-node-block"),
 ])
-def test_tiers_not_ported_raise(rows, jax_method):
-    assert jbatch.BatchedSolver(JCircuit(JNetlist.from_rows(rows))
-                                ).method == jax_method
-    circuit = Circuit(Netlist.from_rows(rows))
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        BatchedSolver(circuit, device="cpu")
+def test_unbanded_tiers_match_reference(rows, jax_method):
+    """The circuits without a band: the same tier as the JAX package, and
+    ``refine="auto"`` within 1e-9 of it and 1e-6 of numpy f64."""
+    jc = JCircuit(JNetlist.from_rows(rows))
+    js = _jax_solver(jc)
+    ts = BatchedSolver(stamps_from_reference(jc.stamps), device="cpu")
+    assert js.method == ts.method == jax_method
+    params = _sweep(jc)
+    got = ts(params).numpy()
+    assert _rel_err(got, np.asarray(js(params))) <= 1e-9
+    assert _rel_err(got, _dense_f64(jc, params)) <= 1e-6
 
 
-@pytest.mark.parametrize("method,error", [
+@pytest.mark.parametrize("method", [
     # The port has the sband and band tiers: forcing either on a circuit
     # that does not qualify is the JAX package's ValueError.
-    pytest.param("sband", ValueError, id="sband"),
-    pytest.param("band", ValueError, id="band"),
-    pytest.param("block", NotImplementedError, id="block"),
-    pytest.param("dense", NotImplementedError, id="dense"),
+    pytest.param("sband", id="sband"),
+    pytest.param("band", id="band"),
 ])
-def test_forced_tiers_not_ported_raise(ladder, method, error):
-    if error is ValueError:
-        rows, match = {"sband": (WIDE_MESH, "narrow symmetric band"),
-                       "band": (RANDOM_GRAPH, "does not band")}[method]
-        with pytest.raises(ValueError, match=match):
-            jbatch.BatchedSolver(JCircuit(JNetlist.from_rows(rows)),
-                                 method=method)
-        with pytest.raises(ValueError, match=match):
-            BatchedSolver(Circuit(Netlist.from_rows(rows)),
-                          method=method, device="cpu")
-    else:
-        with pytest.raises(NotImplementedError, match="Queue 1"):
-            BatchedSolver(ladder[1], method=method, device="cpu")
+def test_forced_tiers_refuse_like_reference(method):
+    rows, match = {"sband": (WIDE_MESH, "narrow symmetric band"),
+                   "band": (RANDOM_GRAPH, "does not band")}[method]
+    with pytest.raises(ValueError, match=match):
+        jbatch.BatchedSolver(JCircuit(JNetlist.from_rows(rows)),
+                             method=method)
+    with pytest.raises(ValueError, match=match):
+        BatchedSolver(Circuit(Netlist.from_rows(rows)), method=method,
+                      device="cpu")
+
+
+@pytest.mark.parametrize("method", ["block", "dense"])
+def test_forced_dense_tiers_match_reference(ladder, method):
+    """The ladder forced onto the dense tiers, as the JAX package takes
+    it."""
+    jc, stamps, params = ladder
+    ts = BatchedSolver(stamps, method=method, device="cpu")
+    assert ts.method == method
+    got = ts(params)
+    assert got.dtype == torch.float64
+    want = np.asarray(_jax_solver(jc, method=method)(params))
+    assert _rel_err(got.numpy(), want) <= 1e-9
+    assert _rel_err(got.numpy(), _dense_f64(jc, params)) <= 1e-6
 
 
 @pytest.mark.parametrize("method,rows", [

@@ -6,11 +6,16 @@ the JAX package's bench builds them.
 * 60×60 (n_kcl = 3599, half-bandwidth 60): the bandable node block, the
   block-Thomas sub-branch.
 * 91×91 (n_kcl = 8280): past the dense SPD probe, so the banded probe.
+* A 300-node random resistor graph with a voltage source (no band the
+  banded sub-branches take): the dense node block on the blocked LU; and
+  the JAX package's 8×8 dense-method circuit (E, VCCS and CCCS, n_kcl =
+  63) forced onto the tier, which the port serves with its scalar-band
+  sub-branch.
 
 On the CPU the JAX package solves these with its dense ``schur_solve``
 sub-branch (node blocks up to 2048 nodes) or its band scan (past them,
-in f64 for ``refine=True``); the port takes the banded sub-branch it takes
-on every device.  The tier (``method == "schur"``) is the same; the tests
+in f64 for ``refine=True``); the port takes the sub-branch it takes on
+every device.  The tier (``method == "schur"``) is the same; the tests
 compare answers, not sub-branches.
 
 Tolerances: assembly exact in f64; the raw f32 tier 1e-5 from the JAX
@@ -200,12 +205,11 @@ def big_branch():
     return jc, stamps_from_reference(jc.stamps)
 
 
-def test_large_node_block_probe_not_ported(big_branch):
-    """Banded-probe parity (the name is kept from when the port refused
-    this probe).  Past 8192 nodes both packages probe the node block with
-    a banded f64 Cholesky on its block-band plan: SPD on the 91×91 branch
-    circuit, not on a 25×330 strip (n_kcl = 8250) with a node held only by
-    a voltage source."""
+def test_large_node_block_banded_probe_matches_reference(big_branch):
+    """Past 8192 nodes both packages probe the node block with a banded
+    f64 Cholesky on its block-band plan: SPD on the 91×91 branch circuit,
+    not on a 25×330 strip (n_kcl = 8250) with a node held only by a
+    voltage source."""
     floating = JCircuit(JNetlist.from_rows(
         _branch_rows(25, 330) + [["e2", "E", "1", "x", "g"]]))
     for jc, st, want in (
@@ -311,6 +315,108 @@ def test_wide_branch_current_matches_reference(wide_branch):
     want = jbatch.sweep(jc, "d1", values, refine=True)
     got = tbatch.sweep(Circuit(Netlist.from_rows(rows)), "d1", values,
                        refine=True, device="cpu")
+    for name in ("e1", "d1"):
+        cur = got.current(name)
+        assert bool(torch.isfinite(cur).all())
+        np.testing.assert_allclose(cur.numpy(), np.asarray(want.current(name)),
+                                   rtol=1e-9, atol=1e-12)
+
+
+def _random_graph_rows(n, edges, seed):
+    """Random unit resistors between node pairs and a ground tie on every
+    node (test_torch_batch.py's graph): no band for RCM to find."""
+    rng = np.random.default_rng(seed)
+    rows = [["v", "A", "1", "n0", "g"]]
+    for k in range(edges):
+        a, b = rng.integers(0, n, 2)
+        if a != b:
+            rows.append([f"r{k}", "R", "1", f"n{a}", f"n{b}"])
+    return rows + [[f"rg{j}", "R", "1", f"n{j}", "g"] for j in range(n)]
+
+
+DENSE_NODE_BLOCK = {
+    "random_graph": list(_random_graph_rows(300, 900, seed=1)) + [
+        ["e1", "E", "2", "n1", "g"],
+        ["d1", "VCCS", "0.5", "n3", "g", "n1", "g"]],
+    "mesh_with_branches": list(grid_rows(8, 8, (0, 0), (7, 7))) + [
+        ["e1", "E", "2", "1", "g"],
+        ["d1", "VCCS", "0.5", "n0_3", "g", "1", "g"],
+        ["f1", "CCCS", "1.5", "n3_3", "g", "1", "g", "e1"]],
+}
+
+
+@pytest.fixture(scope="module", params=list(DENSE_NODE_BLOCK))
+def dense_branch(request):
+    """(JAX circuit, port stamps, params, numpy f64 solutions, rows)."""
+    rows = DENSE_NODE_BLOCK[request.param]
+    jc = JCircuit(JNetlist.from_rows(rows))
+    st = stamps_from_reference(jc.stamps)
+    base = jc.stamps.params
+    params = (base * (1.0 + 0.05 * np.random.default_rng(5).standard_normal(
+        (3, len(base))))).astype(np.float32).astype(np.float64)
+    return jc, st, params, _dense_f64(jc, params), rows
+
+
+def test_dense_node_block_sub_branch_choice(dense_branch, monkeypatch):
+    """The random graph's node block has no band a banded sub-branch
+    takes, so the port solves A⁻¹[B | bk] on the blocked LU (300 nodes
+    padded to 384, two border columns and the RHS); the 8×8 mesh's node
+    block is a narrow band and never reaches it."""
+    _, st, params, _, rows = dense_branch
+    calls = []
+    real = tbatch.lu_solve_multi
+    monkeypatch.setattr(tbatch, "lu_solve_multi",
+                        lambda A, R: calls.append(tuple(R.shape))
+                        or real(A, R))
+    BatchedSolver(st, refine=False, method="schur", device="cpu")(params)
+    if rows is DENSE_NODE_BLOCK["random_graph"]:
+        assert calls == [(len(params), 384, 3)]
+    else:
+        assert calls == []
+
+
+@pytest.mark.parametrize("refine", [False, "auto", True])
+def test_dense_node_block_matches_reference(dense_branch, refine):
+    jc, st, params, ref, _ = dense_branch
+    js = jbatch.BatchedSolver(jc, dtype=jnp.float32, refine=refine,
+                              method="schur")
+    ts = BatchedSolver(st, refine=refine, method="schur", device="cpu")
+    assert ts.method == js.method == "schur"
+    want = np.asarray(js(params))
+    got = ts(params)
+    assert got.shape == (len(params), st.n)
+    if refine is False:
+        assert got.dtype == torch.float32
+        assert _rel(got.numpy(), want) <= 1e-5
+        return
+    assert got.dtype == torch.float64
+    assert _rel(got.numpy(), want) <= 1e-9
+    assert _rel(got.numpy(), ref) <= 1e-6
+    assert float(ts.residuals(params, got).max()) <= 1e-6
+
+
+@pytest.mark.parametrize("refine", [False, "auto", True])
+def test_dense_node_block_transposed_solve_matches_reference(dense_branch,
+                                                             refine):
+    jc, st, params, _, _ = dense_branch
+    rhs = np.random.default_rng(6).standard_normal((len(params), st.n))
+    want = np.asarray(jbatch.BatchedSolver(
+        jc, dtype=jnp.float32, refine=refine, method="schur")._solve_rhs_t(
+            jnp.asarray(params, jnp.float32), jnp.asarray(rhs)))
+    got = BatchedSolver(st, refine=refine, method="schur",
+                        device="cpu")._solve_rhs_t(
+        torch.as_tensor(params, dtype=torch.float32), torch.as_tensor(rhs))
+    assert _rel(got.numpy(), want) <= (1e-5 if refine is False else 1e-9)
+    truth = _dense_f64(jc, params, rhs, transpose=True)
+    assert _rel(got.numpy(), truth) <= (1e-4 if refine is False else 1e-6)
+
+
+def test_dense_node_block_current_matches_reference(dense_branch):
+    jc, _, _, _, rows = dense_branch
+    values = np.linspace(0.25, 1.0, 3)
+    want = jbatch.sweep(jc, "d1", values, refine=True, method="schur")
+    got = tbatch.sweep(Circuit(Netlist.from_rows(rows)), "d1", values,
+                       refine=True, method="schur", device="cpu")
     for name in ("e1", "d1"):
         cur = got.current(name)
         assert bool(torch.isfinite(cur).all())
