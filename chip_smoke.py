@@ -29,6 +29,15 @@ sample 0 against a numpy f64 dense solve:
 * a 60-stage chain of opamp-macromodel followers (``dense`` tier, the
   library's pivoted LU, no kernel of the repo), B = 16384.
 
+Then the matrix-free grid solve (multigrid-preconditioned CG,
+``grid_equivalent_resistance``): the four stencil kernels against their
+plain versions at every shape class, and the knight's-move equivalent
+resistance of the 1024×1024 grid of unit resistors (f32 and f64), of the
+4096×4096 grid, of the 1000×1000 and 1022×1022 grids (whose coarsest levels,
+125² and 511², take the multi-launch Jacobi route) and of 16 probe pairs at
+once, each held against the same solve with the plain cycle on the card,
+then a profile of the 1024² solve.
+
 Each kernel is also timed against its plain version, against one PyTorch
 call that computes the same function (``torch.linalg.solve`` on the dense
 systems) and against its bound on the card.  Every phase asserts; any
@@ -139,6 +148,36 @@ LU_SHAPES = [(1, 128, 1), (7, 256, 3), (GENERAL_BATCH, 1024, 1),
 LU_HUGE = (2176, 1024, 1)
 LU_TIME_SHAPES = [(GENERAL_BATCH, 1024, 1), (GENERAL_BATCH, 1024, 3),
                   (RANDNET4K_BATCH, 4096, 1)]
+
+# The grid solve.  Shapes (B, h, w) of the stencil kernel checks: a 2×2
+# grid, odd dimensions, the levels of the main paths, a batch of 16 and the
+# 4096² grid.  presmooth_restrict and prolong_postsmooth take even h, w.
+STENCIL_SHAPES = [(1, 2, 2), (1, 3, 5), (1, 8, 8), (1, 64, 64),
+                  (1, 512, 512), (1, 1000, 1000), (1, 1022, 1022),
+                  (1, 1024, 1024), (16, 1024, 1024), (1, 4096, 4096)]
+JACOBI_SWEEPS = (1, 4, 9, 96)
+# Kernel and plain version run the same operations in the same order but
+# for fused multiply-adds, the reductions' order and (vcycle) where the
+# mean projections fall: f32 1e-5 and f64 1e-12 of max|plain| leave one to
+# two orders above that rounding.
+STENCIL_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+# f32: three fields of 8.7 GB, past 2³¹ values.
+STENCIL_HUGE = (130, 4096, 4096)
+STENCIL_TIME_SHAPES = [(1, 1024, 1024), (1, 4096, 4096)]
+TIME_JACOBI_SWEEPS = 8      # one full tiled launch
+# (label, n, dtype, tol): the BASELINE's 1M-node solve (bench.py --grid
+# 1024 --grid-tol 1e-6), its f64 twin, 16M nodes, and the grids whose
+# coarsest level stops at 125² and 511².
+GRID_RUNS = [("grid1024_f32", 1024, torch.float32, 1e-6),
+             ("grid1024_f64", 1024, torch.float64, 1e-10),
+             ("grid4096_f32", 4096, torch.float32, 1e-6),
+             ("grid1000_f32", 1000, torch.float32, 1e-6),
+             ("grid1000_f64", 1000, torch.float64, 1e-10),
+             ("grid1022_f32", 1022, torch.float32, 1e-6)]
+GRID_PAIRS = 16
+GRID_PROFILE_SOLVES = 3     # traced 1024² solves, after a lead-in solve
+GRID_PROFILE_TRIES = 3      # profiler sessions before a trace must be whole
+KNIGHT_R = 4 / math.pi - 0.5  # the infinite grid's knight's-move resistance
 
 # Data-sheet peaks of the H100 SXM at full precision and its memory rate:
 # f32 on the CUDA cores (the tensor cores' f32 path is TF32, which is not
@@ -977,6 +1016,437 @@ def phase_resources(library: Path):
           f"not measured (cuobjdump rc {proc.returncode})"})
 
 
+def event_median_ms(fn, reps: int = 11, inner: int = 10,
+                    warmup: int = 3) -> float:
+    """Median over ``reps`` CUDA-event readings of the mean device time of
+    ``inner`` back-to-back ``fn()`` calls, after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def stencil_cases(st, B, h, w, dtype, gen, weight=1.0):
+    """(name, kernel call, plain call) of every stencil check at one shape,
+    on inputs drawn from ``gen``."""
+    rnd = lambda *shape: torch.randn(*shape, generator=gen,  # noqa: E731
+                                     device="cuda", dtype=dtype)
+    x, r = rnd(B, h, w), rnd(B, h, w)
+    kw = {"weight": weight, "omega": 0.8}
+    cases = [(f"jacobi_sweeps/{k}",
+              functools.partial(st.jacobi_sweeps, x, r, sweeps=k, **kw),
+              functools.partial(st.jacobi_sweeps_plain, x, r, sweeps=k,
+                                **kw)) for k in JACOBI_SWEEPS]
+    if h % 2 == 0 and w % 2 == 0:
+        zc = rnd(B, h // 2, w // 2)
+        for xs, tag in ((None, ""), (x, "/x")):
+            cases += [
+                ("presmooth_restrict" + tag,
+                 functools.partial(st.presmooth_restrict, r, x=xs, **kw),
+                 functools.partial(st.presmooth_restrict_plain, r, x=xs,
+                                   **kw)),
+                ("prolong_postsmooth" + tag,
+                 functools.partial(st.prolong_postsmooth, r, zc, x=xs, **kw),
+                 functools.partial(st.prolong_postsmooth_plain, r, zc, x=xs,
+                                   **kw))]
+    nus = (1, 2) if (h, w) in ((64, 64), (1024, 1024)) and B == 1 else (1,)
+    cases += [(f"vcycle/nu{nu}",
+               functools.partial(st.vcycle, r, nu=nu, **kw),
+               functools.partial(st.vcycle_plain, r, nu=nu, **kw))
+              for nu in nus]
+    return cases
+
+
+def stencil_bound(name: str, B: int, h: int, w: int, dtype) -> dict:
+    """Bytes (inputs read once, output written once) and operations of one
+    stencil call: a sweep is 9 flops a cell, a restriction ~6 a fine cell,
+    a prolongation 8; the V-cycle's bytes are its input and output."""
+    n, item = B * h * w, torch.finfo(dtype).bits // 8
+    values, flops = {
+        "jacobi_sweeps": (3 * n, 9 * TIME_JACOBI_SWEEPS * n),
+        "presmooth_restrict": (1.25 * n, 15 * n),
+        "prolong_postsmooth": (2.25 * n, 17 * n),
+        "vcycle": (2 * n, 4 / 3 * 50 * n),
+    }[name]
+    return bound_ms(flops, values * item, dtype)
+
+
+def phase_stencil_kernels(st):
+    """Each stencil kernel against its plain version on the same CUDA
+    tensors at every shape class in f32 and f64, a Jacobi batch past 2³¹
+    values, then kernel, plain version and bound timed."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    worst = {}
+    shapes = [(s, 1.0) for s in STENCIL_SHAPES] + [((1, 512, 512), 2.0)]
+    for dtype in (torch.float32, torch.float64):
+        for (B, h, w), weight in shapes:
+            for name, kernel, plain in stencil_cases(st, B, h, w, dtype, gen,
+                                                     weight):
+                got = kernel()
+                torch.cuda.synchronize()
+                want = plain()
+                check(got.dtype == dtype and got.shape == want.shape,
+                      f"{name} returned {got.dtype} {tuple(got.shape)}")
+                check(bool(torch.isfinite(got).all()),
+                      f"{name} non-finite at {(B, h, w)} {dtype}")
+                scale = float(want.abs().max()) or 1.0
+                err = float((got - want).abs().max()) / scale
+                emit({"phase": "kernel_check", "kernel": name, "B": B,
+                      "h": h, "w": w, "weight": weight, "dtype": str(dtype),
+                      "max_rel_diff": err, "tol": STENCIL_RTOL[dtype]})
+                check(err <= STENCIL_RTOL[dtype],
+                      f"{name} differs from its plain version by {err:.3e} "
+                      f"at {(B, h, w)} weight {weight} {dtype}")
+                base = name.split("/")[0]
+                worst[(base, dtype)] = max(worst.get((base, dtype), 0.0),
+                                           err)
+                if name.startswith("vcycle"):
+                    mean = float(got.mean(dim=(1, 2)).abs().max()) / scale
+                    check(mean <= STENCIL_RTOL[dtype],
+                          f"vcycle output mean {mean:.3e} at {(B, h, w)}")
+                del got, want
+            torch.cuda.empty_cache()
+    # 64-bit offsets: the last sample of a batch past 2³¹ values against a
+    # launch on that sample alone, bit for bit.
+    B, h, w = STENCIL_HUGE
+    x = torch.randn(B, h, w, generator=gen, device="cuda")
+    r = torch.randn(B, h, w, generator=gen, device="cuda")
+    got = st.jacobi_sweeps(x, r, sweeps=4)[-1:].clone()
+    want = st.jacobi_sweeps(x[-1:].clone(), r[-1:].clone(), sweeps=4)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(got, want))
+    emit({"phase": "kernel_check", "kernel": "jacobi_sweeps/4", "B": B,
+          "h": h, "w": w, "dtype": str(torch.float32), "values": B * h * w,
+          "compared": "last sample vs alone", "bit_equal": same})
+    check(same, "jacobi_sweeps past 2^31 values differs from the sample "
+          "alone")
+    del x, r, got, want
+    torch.cuda.empty_cache()
+
+    timing = {}
+    for B, h, w in STENCIL_TIME_SHAPES:
+        for dtype in (torch.float32, torch.float64):
+            x = torch.randn(B, h, w, generator=gen, device="cuda",
+                            dtype=dtype)
+            r = torch.randn(B, h, w, generator=gen, device="cuda",
+                            dtype=dtype)
+            zc = torch.randn(B, h // 2, w // 2, generator=gen, device="cuda",
+                             dtype=dtype)
+            k = TIME_JACOBI_SWEEPS
+            calls = {
+                "jacobi_sweeps": (
+                    lambda: st.jacobi_sweeps(x, r, sweeps=k),
+                    lambda: st.jacobi_sweeps_plain(x, r, sweeps=k)),
+                "presmooth_restrict": (
+                    lambda: st.presmooth_restrict(r),
+                    lambda: st.presmooth_restrict_plain(r)),
+                "prolong_postsmooth": (
+                    lambda: st.prolong_postsmooth(r, zc),
+                    lambda: st.prolong_postsmooth_plain(r, zc)),
+                "vcycle": (lambda: st.vcycle(r), lambda: st.vcycle_plain(r)),
+            }
+            for name, (kernel, plain) in calls.items():
+                max_abs = float((kernel() - plain()).abs().max())
+                # Alternate plain, kernel, kernel, plain.
+                p1 = event_median_ms(plain)
+                k1 = event_median_ms(kernel)
+                k2 = event_median_ms(kernel)
+                p2 = event_median_ms(plain)
+                t = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
+                     "max_abs_err": max_abs, "library_ms": None,
+                     **stencil_bound(name, B, h, w, dtype)}
+                timing[(name, (B, h, w), dtype)] = t
+                emit({"phase": "kernel_time", "kernel": name, "B": B,
+                      "h": h, "w": w, "dtype": str(dtype),
+                      "kernel_ms": [k1, k2], "plain_ms": [p1, p2],
+                      "max_abs_err": max_abs, "library_ms": None,
+                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"]})
+            del x, r, zc
+            torch.cuda.empty_cache()
+    return worst, timing
+
+
+def grid_launch_counts(st) -> dict:
+    return {w.__name__: w.launches for w in
+            (st.jacobi_sweeps, st.presmooth_restrict, st.prolong_postsmooth,
+             st.vcycle)}
+
+
+def reset_grid_counts(st) -> None:
+    for w in (st.jacobi_sweeps, st.presmooth_restrict,
+              st.prolong_postsmooth, st.vcycle):
+        w.launches = 0
+
+
+def knight_probes(n: int):
+    """bench.py's probes: the centre node and a knight's move away."""
+    return (n // 2, n // 2), (n // 2 + 1, n // 2 + 2)
+
+
+def host_median_ms(fn, reps: int = 5):
+    """Host-clock times of ``fn()`` ending in a synchronize, after one
+    warm-up call, and their median: one call's latency, syncs included."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times, statistics.median(times)
+
+
+def phase_grid(grid, st):
+    """The grid solves of ``GRID_RUNS`` and the 16-pair batch: launches of
+    each stencil wrapper over exactly one solve, answers against the plain
+    cycle on the card, f32 against f64, R against the infinite grid, and
+    one call's latency.  Returns the launches summed over the paths."""
+    launches = dict.fromkeys(grid_launch_counts(st), 0)
+    results = {}
+    for label, n, dtype, tol in GRID_RUNS:
+        a, b = knight_probes(n)
+        solve = functools.partial(grid.grid_equivalent_resistance, n, n, a,
+                                  b, dtype=dtype, tol=tol, device="cuda")
+        reset_grid_counts(st)
+        R, info = solve()
+        torch.cuda.synchronize()
+        counts = grid_launch_counts(st)
+        for k, v in counts.items():
+            launches[k] += v
+        R, its = float(R), int(info.iterations)
+        check(bool(info.converged), f"{label}: did not converge "
+              f"({its} iterations, residual {float(info.residual):.3e})")
+        check(math.isfinite(R), f"{label}: R = {R}")
+        R_plain, info_plain = solve(mg_backend="plain")
+        R_plain, its_plain = float(R_plain), int(info_plain.iterations)
+        f64 = dtype == torch.float64
+        diff = abs(R - R_plain)
+        emit({"phase": "grid", "path": label, "n": n, "nodes": n * n,
+              "dtype": str(dtype), "tol": tol, "probes": [a, b], "R": R,
+              "iterations": its, "residual": float(info.residual),
+              "launches_per_solve": counts, "R_plain_cycle": R_plain,
+              "iterations_plain_cycle": its_plain, "R_diff": diff})
+        check(diff <= (1e-12 if f64 else 1e-6),
+              f"{label}: R {R!r} vs plain cycle {R_plain!r}")
+        check(its == its_plain if f64 else abs(its - its_plain) <= 1,
+              f"{label}: {its} iterations vs {its_plain} with the plain "
+              "cycle")
+        del info_plain
+        torch.cuda.empty_cache()
+        times, ms = host_median_ms(solve)
+        emit({"phase": "grid_time", "path": label, "ms_reps": times,
+              "median_ms": ms, "ms_per_iteration": ms / its})
+        results[label] = {"R": R, "iterations": its, "ms": ms}
+    check(abs(results["grid1024_f32"]["R"] - results["grid1024_f64"]["R"])
+          <= 1e-5, "grid 1024²: R in f32 and f64 differ by more than 1e-5")
+    check(abs(results["grid1024_f64"]["R"] - KNIGHT_R) <= 5e-3,
+          f"grid 1024²: R = {results['grid1024_f64']['R']} is not within "
+          "5e-3 of 4/pi - 1/2")
+
+    n = 1024
+    a, _ = knight_probes(n)
+    offsets = [(dy, dx) for dy in (-96, -32, 32, 96) for dx in (-96, -32,
+                                                                 32, 96)]
+    pairs = np.array([[(a[0] + dy, a[1] + dx), (a[0] + dy + 1, a[1] + dx + 2)]
+                      for dy, dx in offsets[:GRID_PAIRS]])
+    many = functools.partial(grid.grid_equivalent_resistance_many, n, n,
+                             pairs, dtype=torch.float32, tol=1e-6,
+                             device="cuda")
+    reset_grid_counts(st)
+    Rs, res = many()
+    torch.cuda.synchronize()
+    counts = grid_launch_counts(st)
+    for k, v in counts.items():
+        launches[k] += v
+    singles = [float(grid.grid_equivalent_resistance(
+        n, n, tuple(p[0]), tuple(p[1]), dtype=torch.float32, tol=1e-6,
+        device="cuda")[0]) for p in pairs]
+    worst = max(abs(float(R) - s) for R, s in zip(Rs, singles))
+    times, ms = host_median_ms(many)
+    emit({"phase": "grid", "path": f"grid1024_f32_many{GRID_PAIRS}",
+          "pairs": len(pairs), "R": [float(R) for R in Rs],
+          "max_residual": float(res.max()), "launches_per_solve": counts,
+          "worst_vs_single": worst, "ms_reps": times, "median_ms": ms})
+    check(bool((res <= 1e-6).all()), f"many pairs: residual "
+          f"{float(res.max()):.3e}")
+    check(worst <= 1e-5, f"many pairs: {worst:.3e} from the single solves")
+    check(all(v > 0 for k, v in launches.items()),
+          f"a stencil kernel never launched on the grid paths: {launches}")
+    return launches
+
+
+# Kernel names in the trace of each stencil wrapper's launches (the mean
+# projection's first pass, ``mean_partials``, shares its launch with
+# ``subtract_mean``).
+STENCIL_TRACE_NAMES = {
+    "jacobi_sweeps": ("jacobi_tiled", "jacobi_block"),
+    "presmooth_restrict": ("presmooth_restrict_tiled",),
+    "prolong_postsmooth": ("prolong_postsmooth_tiled",),
+    "vcycle": ("vcycle_block", "subtract_mean"),
+}
+
+
+def split_trace(events, labels):
+    """The kernel events and host syncs of each ``record_function`` span in
+    ``labels``.  A kernel belongs to the span in which the host launched it
+    (its launch call shares its ``correlation``), so the device clock's skew
+    cannot move it into a neighbouring span."""
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    spans = {e["name"]: (e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "user_annotation" and e.get("name") in labels}
+    check(len(spans) == len(labels), f"grid profile: spans {sorted(spans)} "
+          f"in the trace, expected {labels}")
+    kernels = {label: [] for label in labels}
+    syncs = dict.fromkeys(labels, 0)
+    for e in events:
+        if e.get("cat") == "kernel":
+            t = launched.get(e.get("args", {}).get("correlation"), e["ts"])
+        elif (e.get("cat") == "cpu_op"
+              and e.get("name") == "aten::_local_scalar_dense"):
+            t = e["ts"]
+        else:
+            continue
+        label = next((k for k, (t0, t1) in spans.items() if t0 <= t <= t1),
+                     None)
+        if label is None:
+            continue
+        if e.get("cat") == "kernel":
+            kernels[label].append(e)
+        else:
+            syncs[label] += 1
+    return kernels, syncs
+
+
+def trace_grid_solves(grid, st, n: int):
+    """One ``torch.profiler`` session of ``GRID_PROFILE_SOLVES`` + 1 f32
+    knight's-move solves at n², each in its own ``record_function`` span;
+    the first is a lead-in whose span is not read.  Returns the trace's
+    events, the span labels read and each span's wrapper launches and CG
+    iterations."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    a, b = knight_probes(n)
+    labels = [f"grid_solve_{k}" for k in range(GRID_PROFILE_SOLVES + 1)]
+    launches, its = {}, {}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for label in labels:
+            reset_grid_counts(st)
+            with record_function(label):
+                _, info = grid.grid_equivalent_resistance(
+                    n, n, a, b, tol=1e-6, device="cuda")
+                torch.cuda.synchronize()
+            launches[label] = grid_launch_counts(st)
+            its[label] = int(info.iterations)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    return events, labels[1:], launches, its
+
+
+def read_grid_trace(events, labels, launches):
+    """Each span's kernels summarised, or the reason the trace is not
+    whole: a span whose stencil kernels by name differ from the wrappers'
+    launches in it, or spans that traced different kernels."""
+    kernels, syncs = split_trace(events, labels)
+    kinds = {"vcycle_block": ("vcycle_block",),
+             "presmooth_restrict": ("presmooth_restrict",),
+             "prolong_postsmooth": ("prolong_postsmooth",),
+             "jacobi": ("jacobi",),
+             "mean_projection": ("mean_partials", "subtract_mean"),
+             "reductions": ("reduce", "sum", "mean"),
+             "padding (matvec)": ("pad", "replication")}
+    solves = []
+    for label in labels:
+        ks = kernels[label]
+        if not ks:
+            return None, f"no kernel in {label}"
+        names = {}
+        for e in ks:
+            names[e["name"]] = names.get(e["name"], 0) + 1
+        traced = {w: sum(v for name, v in names.items()
+                         if any(key in name for key in keys))
+                  for w, keys in STENCIL_TRACE_NAMES.items()}
+        if traced != launches[label]:
+            return None, (f"{label} traced {traced} stencil kernels, the "
+                          f"wrappers launched {launches[label]}")
+        by_kind = {}
+        for e in ks:
+            name = e["name"].lower()
+            kind = next((k for k, keys in kinds.items()
+                         if any(key in name for key in keys)), "elementwise")
+            by_kind[kind] = by_kind.get(kind, 0.0) + e["dur"] / 1e3
+        busy = sum(e["dur"] for e in ks) / 1e3
+        window = (max(e["ts"] + e["dur"] for e in ks)
+                  - min(e["ts"] for e in ks)) / 1e3
+        solves.append({"kernels": len(ks), "names": names, "device_ms": busy,
+                       "window_ms": window, "by_kind": by_kind,
+                       "idle": max(0.0, 1.0 - busy / window),
+                       "syncs": syncs[label]})
+    for key in ("kernels", "syncs"):
+        if len({s[key] for s in solves}) > 1:
+            differ = {name: [s["names"].get(name, 0) for s in solves]
+                      for name in set().union(*(s["names"] for s in solves))}
+            return None, (f"the spans traced {[s[key] for s in solves]} "
+                          f"{key}; kernels by name " + str(
+                              {k: v for k, v in differ.items()
+                               if len(set(v)) > 1}))
+    return solves, None
+
+
+def phase_grid_profile(grid, st):
+    """Device kernel time of the 1024² f32 solve by kind, from a
+    ``torch.profiler`` trace of ``GRID_PROFILE_SOLVES`` solves after a
+    lead-in solve: the device's idle share of each solve's window, launches
+    and host syncs per CG iteration.  A trace is read only when it is
+    whole: in each solve the stencil kernels by name equal the wrappers'
+    launches, and every solve traced the same kernels and host syncs.  A
+    trace that is not whole is reported and taken again, up to
+    ``GRID_PROFILE_TRIES`` times."""
+    n = 1024
+    dropped = []
+    for _ in range(GRID_PROFILE_TRIES):
+        events, labels, launches, its = trace_grid_solves(grid, st, n)
+        check(len(set(its.values())) == 1,
+              f"grid profile: iterations {its} differ")
+        solves, why = read_grid_trace(events, labels, launches)
+        if solves is not None:
+            break
+        dropped.append(why)
+        emit({"phase": "profile", "path": "grid1024_f32",
+              "trace_not_whole": why})
+    check(solves is not None, f"grid profile: no whole trace in "
+          f"{GRID_PROFILE_TRIES} tries: {dropped}")
+    its = its[labels[0]]
+    first = solves[0]
+    emit({"phase": "profile", "path": "grid1024_f32", "iterations": its,
+          "solves": len(solves), "traces_not_whole": len(dropped),
+          "device_ms": [s["device_ms"] for s in solves],
+          "window_ms": [s["window_ms"] for s in solves],
+          "kernels": first["kernels"],
+          "kernels_per_iteration": first["kernels"] / its,
+          "stencil_launches": launches[labels[0]],
+          "host_syncs": first["syncs"],
+          "host_syncs_per_iteration": first["syncs"] / its,
+          "ms_by_kind": dict(sorted(first["by_kind"].items(),
+                                    key=lambda kv: -kv[1])),
+          "device_idle_share": [s["idle"] for s in solves]})
+
+
 def kernel_entry(name, source, replaces, launches, t) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -991,8 +1461,9 @@ def main() -> None:
     sys.path.insert(0, str(ROOT))
     try:
         import nodal_tpu_torch
-        from nodal_tpu_torch.ops import (band, block_lu, block_thomas, lu,
-                                         pcr, sband, scalar_band, tridiag)
+        from nodal_tpu_torch.ops import (band, block_lu, block_thomas, grid,
+                                         lu, pcr, sband, scalar_band,
+                                         stencil, tridiag)
         from nodal_tpu_torch.utils import kernels
         from nodal_tpu_torch.utils.gridgen import ladder_rows
     except ImportError as e:
@@ -1067,6 +1538,11 @@ def main() -> None:
                         MIDSIZE_BATCH)
     phase_profile("lattice", lattice_rows(20, 10, 10), GENERAL_BATCH)
     phase_profile("randnet", randnet_rows(), GENERAL_BATCH)
+    st_worst, st_timing = phase_stencil_kernels(stencil)
+    emit({"phase": "kernel_check_worst",
+          "stencil": {f"{k[0]} {k[1]}": v for k, v in st_worst.items()}})
+    st_launches = phase_grid(grid, stencil)
+    phase_grid_profile(grid, stencil)
 
     emit(card)  # again beside the summary, which a tail of the output keeps
     emit({"kernels": [
@@ -1086,6 +1562,14 @@ def main() -> None:
                      "nodal_tpu/ops/pallas_block_lu.py:345 and "
                      "nodal_tpu/ops/pallas_block_lu.py:408", lu_launches,
                      lu_timing[(GENERAL_BATCH, 1024, 1, torch.float32)]),
+        *(kernel_entry(name, "nodal_tpu_torch/csrc/stencil.cu",
+                       f"nodal_tpu/ops/pallas_stencil.py:{line}",
+                       st_launches[name],
+                       st_timing[(name, (1, 1024, 1024), torch.float32)])
+          for name, line in (("jacobi_sweeps", 137),
+                             ("presmooth_restrict", 211),
+                             ("prolong_postsmooth", 286),
+                             ("vcycle", 380))),
     ]})
     check("jax" not in sys.modules, "jax was imported")
     emit({"ok": True, "device": {"platform": "gpu",

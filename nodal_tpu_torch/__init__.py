@@ -9,7 +9,9 @@ Ported so far: the batched parameter sweeps through every tier of
 ``BatchedSolver`` — netlist compile, stamp values, tridiagonal, band and
 dense assembly, the CUDA PCR, scalar-band LDLᵀ, block-Thomas and blocked-LU
 kernels, the schur tier's sub-branches, the library-LU ``dense`` tier and
-the exact-f64 contract layer of ``BatchedSolver(refine="auto")``.
+the exact-f64 contract layer of ``BatchedSolver(refine="auto")``; and the
+matrix-free grid solve (multigrid-preconditioned CG, batched over injection
+fields) with the CUDA multigrid stencil kernels.
 
     from nodal_tpu_torch import BatchedSolver, Circuit, Netlist
     from nodal_tpu_torch.utils.gridgen import grid_rows
@@ -18,6 +20,10 @@ the exact-f64 contract layer of ``BatchedSolver(refine="auto")``.
     circuit = Circuit(Netlist.from_rows(rows))
     solver = BatchedSolver(circuit, device="cuda")   # method "sband"
     xs = solver(params_batch)          # [B, n] float64 node voltages
+
+    from nodal_tpu_torch import grid_equivalent_resistance
+    R, info = grid_equivalent_resistance(1024, 1024, (512, 512), (513, 514),
+                                         tol=1e-6)   # 1M nodes, on the card
 """
 
 __version__ = "0.1.0"
@@ -30,3 +36,8 @@ from nodal_tpu_torch.netlist import (  # noqa: F401
 from nodal_tpu_torch.circuit import Circuit  # noqa: F401
 from nodal_tpu_torch.models.stamps import compile_stamps  # noqa: F401
 from nodal_tpu_torch.batch import BatchedSolver  # noqa: F401
+from nodal_tpu_torch.ops.grid import (  # noqa: F401
+    grid_equivalent_resistance,
+    grid_equivalent_resistance_many,
+    grid_solve,
+)

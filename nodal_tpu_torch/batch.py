@@ -631,12 +631,14 @@ def _make_schur_solver(assemble, multi_solve, nplan, nk: int, kbe: int):
     return core, (lambda pb, rhs: core(pb, rhs, transpose=True))
 
 
-def _resolve_device(device) -> torch.device:
+def resolve_device(device, who: str = "BatchedSolver") -> torch.device:
+    """The device an entry point ``who`` runs on: CUDA, which must be
+    available, or the CPU when asked for."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "BatchedSolver(device='cuda'): CUDA is not available; pass "
+                f"{who}(device='cuda'): CUDA is not available; pass "
                 "device='cpu' for the plain torch path")
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
@@ -698,7 +700,7 @@ class BatchedSolver:
         if dtype not in (torch.float32, torch.float64):
             raise ValueError(
                 f"dtype must be torch.float32 or torch.float64, not {dtype}")
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         self.dtype = dtype
         self.refine = refine
         # refine="auto" (the default): build the raw f32 tier and wrap it

@@ -2,9 +2,10 @@
 
 Every ``*.cu`` file under ``nodal_tpu_torch/csrc/`` is compiled by ``nvcc``
 for ``sm_90a`` (with ``csrc/`` on the include path for any ``*.cuh``
-header) into one shared library with a plain C interface, which is
-loaded with ``ctypes`` (no PyTorch headers, so the build takes seconds).
-The build runs at the first CUDA call, never at import.
+header), one ``nvcc`` process a source, all started together, and the
+objects are linked into one shared library with a plain C interface,
+which is loaded with ``ctypes`` (no PyTorch headers, so the build takes
+seconds).  The build runs at the first CUDA call, never at import.
 
 * The library lands in ``nodal_tpu_torch/_build/`` (git-ignored), a
   directory created with mode 0700 and refused if another user owns it or
@@ -31,11 +32,15 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+COMPILE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                 "-O3", "-Xcompiler", "-fPIC")
+#: Every flag of the build, hashed into the library's name.
+NVCC_FLAGS = COMPILE_FLAGS + ("-shared",)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_D = ctypes.c_double
+_LL = ctypes.c_longlong
 
 #: C signature of each exported launcher: (argtypes, restype).
 _SIGNATURES = {
@@ -49,6 +54,20 @@ _SIGNATURES = {
        for name in ("block_lu_factor_f32", "block_lu_factor_f64")},
     **{name: ([_P] * 3 + [_I] * 3 + [_P], _I)
        for name in ("block_lu_solve_f32", "block_lu_solve_f64")},
+    **{name: ([_P] * 3 + [_I] * 5 + [_D] * 2 + [_P], _I)
+       for name in ("stencil_jacobi_f32", "stencil_jacobi_f64")},
+    **{name: ([_P] * 3 + [_I] * 3 + [_D] * 2 + [_P], _I)
+       for name in ("stencil_presmooth_restrict_f32",
+                    "stencil_presmooth_restrict_f64")},
+    **{name: ([_P] * 4 + [_I] * 3 + [_D] * 2 + [_P], _I)
+       for name in ("stencil_prolong_postsmooth_f32",
+                    "stencil_prolong_postsmooth_f64")},
+    **{name: ([_P] * 2 + [_I] * 2 + [_P] * 2 + [_I] * 2 + [_D] * 2 + [_P],
+              _I)
+       for name in ("stencil_vcycle_f32", "stencil_vcycle_f64")},
+    **{name: ([_P] * 3 + [_I, _LL, _P], _I)
+       for name in ("stencil_subtract_mean_f32",
+                    "stencil_subtract_mean_f64")},
 }
 
 
@@ -96,21 +115,39 @@ def build() -> Path:
     if out.exists():
         return out
     nvcc = _nvcc()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_private_build_dir())
+    build_dir = _private_build_dir()
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
     os.close(fd)
     try:
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", tmp,
-               *(str(p) for p in _sources() if p.suffix == ".cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                "nvcc failed building the CUDA kernels:\n"
-                f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        with tempfile.TemporaryDirectory(dir=build_dir) as obj_dir:
+            objs, procs = [], []
+            for src in (p for p in _sources() if p.suffix == ".cu"):
+                obj = os.path.join(obj_dir, src.stem + ".o")
+                cmd = [nvcc, *COMPILE_FLAGS, "-I", str(CSRC_DIR), "-c",
+                       "-o", obj, str(src)]
+                objs.append(obj)
+                procs.append((cmd, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True)))
+            # Wait for every compiler before reporting any failure.
+            outputs = [proc.communicate() for _, proc in procs]
+            for (cmd, proc), (stdout, stderr) in zip(procs, outputs):
+                _raise_on_failure(cmd, proc.returncode, stdout, stderr)
+            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *objs]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            _raise_on_failure(cmd, proc.returncode, proc.stdout, proc.stderr)
         os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out
+
+
+def _raise_on_failure(cmd, returncode, stdout, stderr) -> None:
+    if returncode != 0:
+        raise RuntimeError(
+            "nvcc failed building the CUDA kernels:\n"
+            f"$ {' '.join(cmd)}\n{stdout}{stderr}")
 
 
 @functools.cache

@@ -299,33 +299,53 @@ def test_kernel_is_built_with_the_library():
 
 def test_loader_compiles_sources_and_hashes_headers(tmp_path, monkeypatch):
     """A ``.cuh`` header is hashed into the library's name and put on the
-    include path, but only the ``.cu`` files reach nvcc as inputs."""
+    include path, but only the ``.cu`` files reach nvcc as inputs: one
+    compiler process a source, started together, then one link."""
     csrc = tmp_path / "csrc"
     csrc.mkdir()
     (csrc / "a.cu").write_text("#include \"common.cuh\"\n")
+    (csrc / "b.cu").write_text("// b\n")
     (csrc / "common.cuh").write_text("// v1\n")
     monkeypatch.setattr(kernels, "CSRC_DIR", csrc)
     monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "_build")
     first = kernels.library_path()
     (csrc / "common.cuh").write_text("// v2\n")
     assert kernels.library_path() != first
-    calls = []
+    compiles, links = [], []
+
+    def touch(cmd):
+        with open(cmd[cmd.index("-o") + 1], "wb"):
+            pass
+
+    class FakePopen:
+        def __init__(self, cmd, **kw):
+            compiles.append(cmd)
+            touch(cmd)
+            self.returncode = 0
+
+        def communicate(self):
+            return "", ""
 
     def fake_run(cmd, **kw):
-        calls.append(cmd)
-        out = cmd[cmd.index("-o") + 1]
-        with open(out, "wb"):
-            pass
+        links.append(cmd)
+        touch(cmd)
         return type("P", (), {"returncode": 0, "stdout": "", "stderr": ""})
 
     monkeypatch.setattr(kernels, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(kernels.subprocess, "Popen", FakePopen)
     monkeypatch.setattr(kernels.subprocess, "run", fake_run)
     built = kernels.build()
     assert built == kernels.library_path() and built.exists()
-    (cmd,) = calls
-    assert cmd[cmd.index("-I") + 1] == str(csrc)
-    inputs = cmd[cmd.index("-o") + 2:]
-    assert inputs == [str(csrc / "a.cu")]
+    assert [cmd[-1] for cmd in compiles] == [str(csrc / "a.cu"),
+                                             str(csrc / "b.cu")]
+    objs = []
+    for cmd in compiles:
+        assert cmd[cmd.index("-I") + 1] == str(csrc)
+        assert "-c" in cmd and "-shared" not in cmd
+        objs.append(cmd[cmd.index("-o") + 1])
+    (link,) = links
+    assert "-shared" in link
+    assert link[link.index("-o") + 2:] == objs
 
 
 # --- BatchedSolver: the block and dense tiers -------------------------------
