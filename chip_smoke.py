@@ -36,7 +36,13 @@ resistance of the 1024×1024 grid of unit resistors (f32 and f64), of the
 4096×4096 grid, of the 1000×1000 and 1022×1022 grids (whose coarsest levels,
 125² and 511², take the multi-launch Jacobi route) and of 16 probe pairs at
 once, each held against the same solve with the plain cycle on the card,
-then a profile of the 1024² solve.
+then a profile of the 1024² solve.  The fused-CG path
+(``grid_solve(fused_cg=True)``): its two kernels against their plain
+versions, the 1024² (f32, f64), 4096² and 16-pair solves through it, each
+held against the unfused kernel solve, and a profile of its 1024² solve.
+Last, the adjoint: ``backward()`` through each tier's solver on the card
+against the same solver's gradient on the CPU and a dense f64 autograd
+oracle, with the tier's kernel launched in the backward pass.
 
 Each kernel is also timed against its plain version, against one PyTorch
 call that computes the same function (``torch.linalg.solve`` on the dense
@@ -175,9 +181,20 @@ GRID_RUNS = [("grid1024_f32", 1024, torch.float32, 1e-6),
              ("grid1000_f64", 1000, torch.float64, 1e-10),
              ("grid1022_f32", 1022, torch.float32, 1e-6)]
 GRID_PAIRS = 16
+# The fused path runs on these GRID_RUNS and the 16 pairs.
+FUSED_GRID_RUNS = ("grid1024_f32", "grid1024_f64", "grid4096_f32")
 GRID_PROFILE_SOLVES = 3     # traced 1024² solves, after a lead-in solve
 GRID_PROFILE_TRIES = 3      # profiler sessions before a trace must be whole
 KNIGHT_R = 4 / math.pi - 0.5  # the infinite grid's knight's-move resistance
+
+# The adjoint phase: each tier's smoke circuit at this batch.  Its
+# gradients are held to the bound of tests/test_torch_adjoint.py: in f64
+# 1e-9 of the chain rule's magnitude S_k (chain_scale) for each parameter,
+# the two solves' rounding; in f32 "auto" (2·1e-6 + ε₃₂)·S_k, the contract
+# on λ and x plus the chain rule's f32 rounding.  The card and the CPU
+# differ by at most twice the bound.
+ADJOINT_BATCH = 8
+ADJOINT_F64_TOL = 1e-9
 
 # Data-sheet peaks of the H100 SXM at full precision and its memory rate:
 # f32 on the CUDA cores (the tensor cores' f32 path is TF32, which is not
@@ -1176,6 +1193,201 @@ def phase_stencil_kernels(st):
     return worst, timing
 
 
+def fused_cg_inputs(B, h, w, dtype, gen):
+    """p, x, r, Lp [B, h, w] and per-sample α, mean p [B] from ``gen``."""
+    rnd = lambda *shape: torch.randn(*shape, generator=gen,  # noqa: E731
+                                     device="cuda", dtype=dtype)
+    p, x, r, lp = (rnd(B, h, w) for _ in range(4))
+    return p, x, r, lp, rnd(B), 0.1 * rnd(B)
+
+
+def fused_cg_errors(fc, p, x, r, lp, alpha, mean_p, weight=1.0) -> dict:
+    """Each output of both kernels against its plain version on the same
+    CUDA tensors: fields relative to max|plain|, each tile's partial sums
+    relative to that tile's sum of |terms| (both sum up to 2048 terms, in a
+    fixed tree and in torch's order)."""
+    out = {}
+    got_lp, got_part = fc.stencil_partials(p, weight=weight)
+    got_u = fc.update_partials(x, r, p, lp, alpha, mean_p)
+    torch.cuda.synchronize()
+    want_lp, want_part = fc.stencil_partials_plain(p, weight=weight)
+    want_u = fc.update_partials_plain(x, r, p, lp, alpha, mean_p)
+    tiny = torch.finfo(p.dtype).tiny
+    for name, got, want in (("Lp", got_lp, want_lp), ("x", got_u[0],
+                                                       want_u[0]),
+                            ("r", got_u[1], want_u[1])):
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+              f"fused CG {name}: shape {tuple(got.shape)} or non-finite")
+        scale = float(want.abs().max()) or 1.0
+        out[name] = float((got - want).abs().max()) / scale
+    scales = {"sum_p_lp": fc._tile_sums((p * want_lp).abs()),
+              "sum_p": fc._tile_sums(p.abs()), "sum_r2": want_u[2]}
+    for name, got, want in (
+            ("sum_p_lp", got_part[..., 0], want_part[..., 0]),
+            ("sum_p", got_part[..., 1], want_part[..., 1]),
+            ("sum_r2", got_u[2], want_u[2])):
+        out[name] = float(((got - want).abs()
+                           / scales[name].clamp_min(tiny)).max())
+    out["max_abs"] = {"stencil_partials": max(
+        float((got_lp - want_lp).abs().max()),
+        float((got_part - want_part).abs().max())),
+        "update_partials": max(float((g - w).abs().max())
+                               for g, w in zip(got_u, want_u))}
+    return out
+
+
+def fused_cg_bound(fc, name: str, B: int, h: int, w: int, dtype) -> dict:
+    """Bytes (inputs read once, outputs written once, partials included)
+    and operations of one fused CG kernel call: S forms Lp (6 flops a
+    cell) and two sums (3); U two AXPYs and a sum of squares (7)."""
+    n, item = B * h * w, torch.finfo(dtype).bits // 8
+    tiles = B * fc.n_tiles(h, w)
+    values, flops = {
+        "stencil_partials": (2 * n + 2 * tiles, 9 * n),
+        "update_partials": (6 * n + 2 * B + tiles, 7 * n),
+    }[name]
+    return bound_ms(flops, values * item, dtype)
+
+
+def phase_fused_cg_kernels(fc):
+    """Both fused CG kernels against their plain versions on the same CUDA
+    tensors at every stencil shape in f32 and f64, an f32 batch past 2³¹
+    values, then kernel, plain version and bound timed."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    worst = {}
+    shapes = [(s, 1.0) for s in STENCIL_SHAPES] + [((1, 512, 512), 2.0)]
+    for dtype in (torch.float32, torch.float64):
+        tol = STENCIL_RTOL[dtype]
+        for (B, h, w), weight in shapes:
+            errs = fused_cg_errors(fc, *fused_cg_inputs(B, h, w, dtype, gen),
+                                   weight=weight)
+            max_abs = errs.pop("max_abs")
+            emit({"phase": "kernel_check", "kernel": "fused_cg", "B": B,
+                  "h": h, "w": w, "weight": weight, "dtype": str(dtype),
+                  "max_rel_diff": errs, "max_abs_diff": max_abs, "tol": tol})
+            for name, err in errs.items():
+                check(err <= tol, f"fused CG {name} differs from its plain "
+                      f"version by {err:.3e} at {(B, h, w)} {dtype}")
+                worst[(name, dtype)] = max(worst.get((name, dtype), 0.0), err)
+        torch.cuda.empty_cache()
+    # 64-bit offsets: the last sample of a batch past 2³¹ values against a
+    # launch on that sample alone, bit for bit (U reads one field as x, r,
+    # p and Lp, so the batch fits beside its two outputs).
+    B, h, w = STENCIL_HUGE
+    p = torch.randn(B, h, w, generator=gen, device="cuda")
+    alpha = torch.randn(B, generator=gen, device="cuda")
+    mean_p = torch.randn(B, generator=gen, device="cuda")
+    tail = p[-1:].clone()
+    got = [t[-1:].clone() for t in fc.stencil_partials(p)]
+    want = fc.stencil_partials(tail)
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    got = [t[-1:].clone() for t in fc.update_partials(p, p, p, p, alpha,
+                                                        mean_p)]
+    want = fc.update_partials(tail, tail, tail, tail, alpha[-1:].clone(),
+                              mean_p[-1:].clone())
+    torch.cuda.synchronize()
+    same_u = all(torch.equal(a, b) for a, b in zip(got, want))
+    emit({"phase": "kernel_check", "kernel": "fused_cg", "B": B, "h": h,
+          "w": w, "dtype": str(torch.float32), "values": B * h * w,
+          "compared": "last sample vs alone",
+          "bit_equal": {"stencil_partials": same, "update_partials": same_u}})
+    check(same and same_u, "fused CG kernels past 2^31 values differ from "
+          "the sample alone")
+    del p, tail, got, want
+    torch.cuda.empty_cache()
+
+    timing = {}
+    for B, h, w in STENCIL_TIME_SHAPES:
+        for dtype in (torch.float32, torch.float64):
+            p, x, r, lp, alpha, mean_p = fused_cg_inputs(B, h, w, dtype, gen)
+            max_abs = fused_cg_errors(fc, p, x, r, lp, alpha,
+                                      mean_p)["max_abs"]
+            calls = {
+                "stencil_partials": (
+                    lambda: fc.stencil_partials(p),
+                    lambda: fc.stencil_partials_plain(p)),
+                "update_partials": (
+                    lambda: fc.update_partials(x, r, p, lp, alpha, mean_p),
+                    lambda: fc.update_partials_plain(x, r, p, lp, alpha,
+                                                     mean_p)),
+            }
+            for name, (kernel, plain) in calls.items():
+                # Alternate plain, kernel, kernel, plain.
+                p1 = event_median_ms(plain)
+                k1 = event_median_ms(kernel)
+                k2 = event_median_ms(kernel)
+                p2 = event_median_ms(plain)
+                t = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
+                     "max_abs_err": max_abs[name], "library_ms": None,
+                     **fused_cg_bound(fc, name, B, h, w, dtype)}
+                timing[(name, (B, h, w), dtype)] = t
+                emit({"phase": "kernel_time", "kernel": name, "B": B,
+                      "h": h, "w": w, "dtype": str(dtype),
+                      "kernel_ms": [k1, k2], "plain_ms": [p1, p2],
+                      "max_abs_err": max_abs[name], "library_ms": None,
+                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"]})
+            del p, x, r, lp
+            torch.cuda.empty_cache()
+    return worst, timing
+
+
+def fused_launch_counts(fc) -> dict:
+    return {w.__name__: w.launches
+            for w in (fc.stencil_partials, fc.update_partials)}
+
+
+def reset_fused_counts(fc) -> None:
+    fc.stencil_partials.launches = 0
+    fc.update_partials.launches = 0
+
+
+def fused_grid_run(grid, fc, label, n, rhs, dtype, tol, readout, want,
+                   want_its) -> dict:
+    """One fused path: ``grid_solve(fused_cg=True)`` on the injection
+    fields ``rhs``, its answer ``readout(x)`` against ``want`` from the
+    unfused kernel solve, its iterations against ``want_its``, a second
+    solve bit for bit, each fused wrapper launched, and one call's latency.
+    Returns the fused wrappers' launches over one solve."""
+    solve = functools.partial(grid.grid_solve, n, n, rhs, dtype=dtype,
+                              tol=tol, fused_cg=True, device="cuda")
+    reset_fused_counts(fc)
+    x, info = solve()
+    torch.cuda.synchronize()
+    counts = fused_launch_counts(fc)
+    x2, info2 = solve()
+    same = torch.equal(x, x2) and all(torch.equal(a, b)
+                                      for a, b in zip(info, info2))
+    got = readout(x)
+    its = torch.as_tensor(info.iterations).reshape(-1).cpu()
+    want_its = torch.as_tensor(want_its).reshape(-1).cpu()
+    diff = float((torch.as_tensor(got, dtype=torch.float64).cpu()
+                  - torch.as_tensor(want, dtype=torch.float64).cpu())
+                 .abs().max())
+    f64 = dtype == torch.float64
+    emit({"phase": "grid_fused", "path": label, "n": n, "dtype": str(dtype),
+          "tol": tol, "R": torch.as_tensor(got).reshape(-1).tolist(),
+          "iterations": its.tolist(),
+          "iterations_unfused": want_its.tolist(),
+          "residual": torch.as_tensor(info.residual).reshape(-1).tolist(),
+          "R_diff_vs_unfused": diff, "bit_equal_repeat": same,
+          "launches_per_solve": counts})
+    check(bool(torch.as_tensor(info.converged).all()),
+          f"{label} fused: did not converge ({its.tolist()} iterations)")
+    check(diff <= (1e-10 if f64 else 1e-6),
+          f"{label} fused: R {diff:.3e} from the unfused kernel solve")
+    check(int((its - want_its).abs().max()) <= 1,
+          f"{label} fused: {its.tolist()} iterations vs "
+          f"{want_its.tolist()} unfused")
+    check(same, f"{label} fused: two solves differ")
+    check(all(v > 0 for v in counts.values()),
+          f"{label} fused: a fused kernel never launched: {counts}")
+    del x2, info2
+    times, ms = host_median_ms(solve)
+    emit({"phase": "grid_time", "path": label + "_fused", "ms_reps": times,
+          "median_ms": ms, "ms_per_iteration": ms / int(its.max())})
+    return counts
+
+
 def grid_launch_counts(st) -> dict:
     return {w.__name__: w.launches for w in
             (st.jacobi_sweeps, st.presmooth_restrict, st.prolong_postsmooth,
@@ -1207,12 +1419,15 @@ def host_median_ms(fn, reps: int = 5):
     return times, statistics.median(times)
 
 
-def phase_grid(grid, st):
+def phase_grid(grid, st, fc):
     """The grid solves of ``GRID_RUNS`` and the 16-pair batch: launches of
     each stencil wrapper over exactly one solve, answers against the plain
     cycle on the card, f32 against f64, R against the infinite grid, and
-    one call's latency.  Returns the launches summed over the paths."""
+    one call's latency; then the fused path on ``FUSED_GRID_RUNS`` and the
+    16 pairs (:func:`fused_grid_run`).  Returns the stencil and the fused
+    wrappers' launches, each summed over its paths."""
     launches = dict.fromkeys(grid_launch_counts(st), 0)
+    fused = dict.fromkeys(fused_launch_counts(fc), 0)
     results = {}
     for label, n, dtype, tol in GRID_RUNS:
         a, b = knight_probes(n)
@@ -1248,6 +1463,16 @@ def phase_grid(grid, st):
         emit({"phase": "grid_time", "path": label, "ms_reps": times,
               "median_ms": ms, "ms_per_iteration": ms / its})
         results[label] = {"R": R, "iterations": its, "ms": ms}
+        if label in FUSED_GRID_RUNS:
+            rhs = torch.zeros(n, n, dtype=dtype, device="cuda")
+            rhs[a] += 1.0
+            rhs[b] -= 1.0
+            counts = fused_grid_run(grid, fc, label, n, rhs, dtype, tol,
+                                    lambda x: x[a] - x[b], R, its)
+            for k, v in counts.items():
+                fused[k] += v
+            del rhs
+            torch.cuda.empty_cache()
     check(abs(results["grid1024_f32"]["R"] - results["grid1024_f64"]["R"])
           <= 1e-5, "grid 1024²: R in f32 and f64 differ by more than 1e-5")
     check(abs(results["grid1024_f64"]["R"] - KNIGHT_R) <= 5e-3,
@@ -1283,17 +1508,28 @@ def phase_grid(grid, st):
     check(worst <= 1e-5, f"many pairs: {worst:.3e} from the single solves")
     check(all(v > 0 for k, v in launches.items()),
           f"a stencil kernel never launched on the grid paths: {launches}")
-    return launches
+
+    rhs, idx, pa, pb = grid._probe_fields(n, n, pairs, torch.float32, "cuda")
+    _, info = grid.grid_solve(n, n, rhs, tol=1e-6, device="cuda")
+    counts = fused_grid_run(
+        grid, fc, f"grid1024_f32_many{GRID_PAIRS}", n, rhs, torch.float32,
+        1e-6, lambda x: x.reshape(len(pairs), n * n)[idx, pa]
+        - x.reshape(len(pairs), n * n)[idx, pb], Rs, info.iterations)
+    for k, v in counts.items():
+        fused[k] += v
+    return launches, fused
 
 
-# Kernel names in the trace of each stencil wrapper's launches (the mean
-# projection's first pass, ``mean_partials``, shares its launch with
-# ``subtract_mean``).
-STENCIL_TRACE_NAMES = {
+# Kernel names in the trace of each stencil and fused CG wrapper's
+# launches (the mean projection's first pass, ``mean_partials``, shares its
+# launch with ``subtract_mean``).
+GRID_TRACE_NAMES = {
     "jacobi_sweeps": ("jacobi_tiled", "jacobi_block"),
     "presmooth_restrict": ("presmooth_restrict_tiled",),
     "prolong_postsmooth": ("prolong_postsmooth_tiled",),
     "vcycle": ("vcycle_block", "subtract_mean"),
+    "stencil_partials": ("stencil_partials_tiled",),
+    "update_partials": ("update_partials_tiled",),
 }
 
 
@@ -1330,26 +1566,26 @@ def split_trace(events, labels):
     return kernels, syncs
 
 
-def trace_grid_solves(grid, st, n: int):
-    """One ``torch.profiler`` session of ``GRID_PROFILE_SOLVES`` + 1 f32
-    knight's-move solves at n², each in its own ``record_function`` span;
-    the first is a lead-in whose span is not read.  Returns the trace's
-    events, the span labels read and each span's wrapper launches and CG
-    iterations."""
+def trace_grid_solves(solve, st, fc):
+    """One ``torch.profiler`` session of ``GRID_PROFILE_SOLVES`` + 1 calls
+    of ``solve`` (a grid solve returning ``(_, SolveInfo)``), each in its
+    own ``record_function`` span; the first is a lead-in whose span is not
+    read.  Returns the trace's events, the span labels read and each span's
+    wrapper launches and CG iterations."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    a, b = knight_probes(n)
     labels = [f"grid_solve_{k}" for k in range(GRID_PROFILE_SOLVES + 1)]
     launches, its = {}, {}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for label in labels:
             reset_grid_counts(st)
+            reset_fused_counts(fc)
             with record_function(label):
-                _, info = grid.grid_equivalent_resistance(
-                    n, n, a, b, tol=1e-6, device="cuda")
+                _, info = solve()
                 torch.cuda.synchronize()
-            launches[label] = grid_launch_counts(st)
+            launches[label] = {**grid_launch_counts(st),
+                               **fused_launch_counts(fc)}
             its[label] = int(info.iterations)
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "trace.json"
@@ -1360,10 +1596,13 @@ def trace_grid_solves(grid, st, n: int):
 
 def read_grid_trace(events, labels, launches):
     """Each span's kernels summarised, or the reason the trace is not
-    whole: a span whose stencil kernels by name differ from the wrappers'
-    launches in it, or spans that traced different kernels."""
+    whole: a span whose stencil and fused CG kernels by name differ from
+    the wrappers' launches in it, or spans that traced different
+    kernels."""
     kernels, syncs = split_trace(events, labels)
-    kinds = {"vcycle_block": ("vcycle_block",),
+    kinds = {"stencil_partials": ("stencil_partials_tiled",),
+             "update_partials": ("update_partials_tiled",),
+             "vcycle_block": ("vcycle_block",),
              "presmooth_restrict": ("presmooth_restrict",),
              "prolong_postsmooth": ("prolong_postsmooth",),
              "jacobi": ("jacobi",),
@@ -1380,9 +1619,9 @@ def read_grid_trace(events, labels, launches):
             names[e["name"]] = names.get(e["name"], 0) + 1
         traced = {w: sum(v for name, v in names.items()
                          if any(key in name for key in keys))
-                  for w, keys in STENCIL_TRACE_NAMES.items()}
+                  for w, keys in GRID_TRACE_NAMES.items()}
         if traced != launches[label]:
-            return None, (f"{label} traced {traced} stencil kernels, the "
+            return None, (f"{label} traced {traced} grid kernels, the "
                           f"wrappers launched {launches[label]}")
         by_kind = {}
         for e in ks:
@@ -1408,43 +1647,202 @@ def read_grid_trace(events, labels, launches):
     return solves, None
 
 
-def phase_grid_profile(grid, st):
-    """Device kernel time of the 1024² f32 solve by kind, from a
-    ``torch.profiler`` trace of ``GRID_PROFILE_SOLVES`` solves after a
+def phase_grid_profile(grid, st, fc, fused: bool):
+    """Device kernel time of the 1024² f32 knight's-move solve by kind,
+    through the plain CG loop or with ``fused`` through the fused one, from
+    a ``torch.profiler`` trace of ``GRID_PROFILE_SOLVES`` solves after a
     lead-in solve: the device's idle share of each solve's window, launches
     and host syncs per CG iteration.  A trace is read only when it is
-    whole: in each solve the stencil kernels by name equal the wrappers'
-    launches, and every solve traced the same kernels and host syncs.  A
-    trace that is not whole is reported and taken again, up to
+    whole: in each solve the stencil and fused CG kernels by name equal the
+    wrappers' launches, and every solve traced the same kernels and host
+    syncs.  A trace that is not whole is reported and taken again, up to
     ``GRID_PROFILE_TRIES`` times."""
     n = 1024
+    a, b = knight_probes(n)
+    path = "grid1024_f32_fused" if fused else "grid1024_f32"
+    if fused:
+        rhs = torch.zeros(n, n, device="cuda")
+        rhs[a] += 1.0
+        rhs[b] -= 1.0
+        solve = functools.partial(grid.grid_solve, n, n, rhs, tol=1e-6,
+                                  fused_cg=True, device="cuda")
+    else:
+        solve = functools.partial(grid.grid_equivalent_resistance, n, n, a,
+                                  b, tol=1e-6, device="cuda")
     dropped = []
     for _ in range(GRID_PROFILE_TRIES):
-        events, labels, launches, its = trace_grid_solves(grid, st, n)
+        events, labels, launches, its = trace_grid_solves(solve, st, fc)
         check(len(set(its.values())) == 1,
               f"grid profile: iterations {its} differ")
         solves, why = read_grid_trace(events, labels, launches)
         if solves is not None:
             break
         dropped.append(why)
-        emit({"phase": "profile", "path": "grid1024_f32",
-              "trace_not_whole": why})
+        emit({"phase": "profile", "path": path, "trace_not_whole": why})
     check(solves is not None, f"grid profile: no whole trace in "
           f"{GRID_PROFILE_TRIES} tries: {dropped}")
     its = its[labels[0]]
     first = solves[0]
-    emit({"phase": "profile", "path": "grid1024_f32", "iterations": its,
+    emit({"phase": "profile", "path": path, "iterations": its,
           "solves": len(solves), "traces_not_whole": len(dropped),
           "device_ms": [s["device_ms"] for s in solves],
           "window_ms": [s["window_ms"] for s in solves],
           "kernels": first["kernels"],
           "kernels_per_iteration": first["kernels"] / its,
-          "stencil_launches": launches[labels[0]],
+          "launches": launches[labels[0]],
           "host_syncs": first["syncs"],
           "host_syncs_per_iteration": first["syncs"] / its,
           "ms_by_kind": dict(sorted(first["by_kind"].items(),
                                     key=lambda kv: -kv[1])),
           "device_idle_share": [s["idle"] for s in solves]})
+
+
+def chain_scale(stamps, params: np.ndarray, x: np.ndarray,
+                lam: np.ndarray) -> np.ndarray:
+    """S_k per sample [B, P]: Σ_e |∂v_e/∂p_k| times ‖λ‖∞·‖x‖∞ over the G
+    entries and ‖λ‖∞ over the RHS entries, the magnitude of the adjoint's
+    chain rule for parameter k (``ADJOINT_BATCH``'s comment)."""
+    from nodal_tpu_torch.models.stamps import _INV, _LIN
+
+    def factor(v, e):
+        with np.errstate(divide="ignore"):
+            inv = 1.0 / np.where(e == _INV, v, 1.0)
+        return (np.where(e == _LIN, v, np.where(e == _INV, inv, 1.0)),
+                np.where(e == _LIN, 1.0,
+                         np.where(e == _INV, -inv * inv, 0.0)))
+
+    out = np.zeros_like(params)
+    for k, p in enumerate(params):
+        nl, nx = np.abs(lam[k]).max(), np.abs(x[k]).max()
+        for coeff, p1, e1, p2, e2, mag in (
+                (stamps.g_coeff, stamps.g_p1, stamps.g_e1, stamps.g_p2,
+                 stamps.g_e2, nl * nx),
+                (stamps.rhs_coeff, stamps.rhs_p1, stamps.rhs_e1,
+                 stamps.rhs_p2, stamps.rhs_e2, nl)):
+            f1, d1 = factor(p[p1], e1)
+            f2, d2 = factor(p[p2], e2)
+            np.add.at(out[k], p1, np.abs(coeff * d1 * f2) * mag)
+            np.add.at(out[k], p2, np.abs(coeff * f1 * d2) * mag)
+    return out
+
+
+def loss_grad(solver, params_np, w, device):
+    """(x, ∂Σ w·x/∂p) through ``solver`` for params on ``device``."""
+    p = torch.tensor(params_np, dtype=solver.dtype, device=device,
+                     requires_grad=True)
+    x = solver(p)
+    (w.to(device=device, dtype=x.dtype) * x).sum().backward()
+    return x.detach(), p.grad
+
+
+def phase_adjoint():
+    """``backward()`` through each tier's solver on its smoke circuit at
+    ``ADJOINT_BATCH``, in f32 ``auto`` (the main path) and raw f64: the
+    card's gradient against the same solver's on the CPU and a dense f64
+    autograd oracle (``assemble_dense`` + ``torch.linalg.solve``) within
+    the bound of ``chain_scale``, the tier's kernel wrappers launched in
+    the backward pass (none on ``dense``), and backward time against
+    forward time (host clock, median of 5).  Returns each wrapper's
+    backward launches summed over the tiers."""
+    from nodal_tpu_torch import BatchedSolver, Circuit, Netlist
+    from nodal_tpu_torch.ops import block_thomas, lu, pcr, sband
+    from nodal_tpu_torch.ops.assemble import assemble_dense
+    from nodal_tpu_torch.utils.gridgen import ladder_rows
+
+    sb, bt = (sband.sband_solve_multi,), (block_thomas.band_solve_multi,)
+    lus = (lu.lu_factor, lu.lu_solve_factored)
+    wrappers = (pcr.pcr_solve, *sb, *bt, *lus)
+    tiers = [("ladder", ladder_rows(LADDER_RUNGS), "tridiag",
+              (pcr.pcr_solve,)),
+             ("mesh", mesh_rows(MESH_NODES), "sband", sb),
+             ("branch", mesh_rows(MESH_NODES, branch=True), "schur", sb),
+             ("lattice", lattice_rows(20, 10, 10), "band", bt),
+             ("widebranch", grid_circuit_rows(64, 64, branch=True), "schur",
+              bt),
+             ("randnet", randnet_rows(), "block", lus),
+             ("randbranch", randnet_rows(branch=True), "schur", lus),
+             ("opchain", opchain_rows(OPCHAIN_STAGES), "dense", ())]
+    backward_launches = dict.fromkeys((w.__name__ for w in wrappers), 0)
+    for label, rows, method, kernels in tiers:
+        circuit = Circuit(Netlist.from_rows(rows))
+        stamps = circuit.stamps
+        params_np = sweep_params(circuit, ADJOINT_BATCH).astype(np.float64)
+        w = torch.as_tensor(np.random.default_rng(7).standard_normal(
+            (ADJOINT_BATCH, stamps.n)))
+        # The f64 oracle and the truth the bound is taken at.
+        p64 = torch.tensor(params_np, device="cuda", requires_grad=True)
+        G, b = assemble_dense(stamps, p64)
+        x_true = torch.linalg.solve(G, b)
+        (w.cuda() * x_true).sum().backward()
+        g_true = p64.grad.cpu().numpy()
+        lam_true = torch.linalg.solve(G.detach().transpose(1, 2), w.cuda())
+        scale = chain_scale(stamps, params_np, x_true.detach().cpu().numpy(),
+                            lam_true.cpu().numpy())
+        del G, b, x_true, lam_true, p64
+        for refine, dtype in (("auto", torch.float32),
+                              (False, torch.float64)):
+            solver = BatchedSolver(circuit, dtype=dtype, refine=refine,
+                                   device="cuda")
+            check(solver.method == method,
+                  f"adjoint {label}: method {solver.method}")
+            p = torch.tensor(params_np, dtype=dtype, device="cuda",
+                             requires_grad=True)
+            loss = (w.cuda().to(torch.float64) * solver(p)).sum()
+            torch.cuda.synchronize()
+            for wr in wrappers:
+                wr.launches = 0
+            loss.backward()
+            torch.cuda.synchronize()
+            launched = {wr.__name__: wr.launches for wr in wrappers}
+            for k, v in launched.items():
+                backward_launches[k] += v
+            g = p.grad.double().cpu().numpy()
+            _, g_cpu = loss_grad(BatchedSolver(
+                circuit, dtype=dtype, refine=refine, device="cpu"),
+                params_np, w, "cpu")
+            g_cpu = g_cpu.double().numpy()
+            tol = (ADJOINT_F64_TOL if dtype == torch.float64 else
+                   2 * CONTRACT_TOL + np.finfo(np.float32).eps) * scale
+            err_true = float((np.abs(g - g_true) / tol).max())
+            err_cpu = float((np.abs(g - g_cpu) / (2 * tol)).max())
+
+            def backward_once():
+                q = torch.tensor(params_np, dtype=dtype, device="cuda",
+                                 requires_grad=True)
+                out = (w.cuda().to(torch.float64) * solver(q)).sum()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out.backward()
+                torch.cuda.synchronize()
+                return (time.perf_counter() - t0) * 1e3
+
+            backward_once()
+            bwd = [backward_once() for _ in range(5)]
+            _, fwd_ms = host_median_ms(functools.partial(
+                solver, torch.as_tensor(params_np, dtype=dtype,
+                                        device="cuda")))
+            emit({"phase": "adjoint", "path": label, "method": method,
+                  "refine": refine, "dtype": str(dtype), "B": ADJOINT_BATCH,
+                  "n": stamps.n, "params": len(stamps.params),
+                  "err_vs_oracle_over_bound": err_true,
+                  "err_vs_cpu_over_bound": err_cpu,
+                  "max_rel_vs_oracle": float(np.abs(g - g_true).max()
+                                             / np.abs(g_true).max()),
+                  "backward_launches": launched,
+                  "backward_ms": statistics.median(bwd),
+                  "backward_ms_reps": bwd, "forward_ms": fwd_ms})
+            check(bool(np.isfinite(g).all()),
+                  f"adjoint {label} {refine}: non-finite gradient")
+            check(err_true <= 1.0, f"adjoint {label} {refine}: "
+                  f"{err_true:.3e} of the bound from the f64 oracle")
+            check(err_cpu <= 1.0, f"adjoint {label} {refine}: "
+                  f"{err_cpu:.3e} of twice the bound from the CPU gradient")
+            check(all(launched[k.__name__] > 0 for k in kernels)
+                  if kernels else not any(launched.values()),
+                  f"adjoint {label} {refine}: backward launched {launched}")
+            del solver, p, loss
+            torch.cuda.empty_cache()
+    return backward_launches
 
 
 def kernel_entry(name, source, replaces, launches, t) -> dict:
@@ -1461,9 +1859,9 @@ def main() -> None:
     sys.path.insert(0, str(ROOT))
     try:
         import nodal_tpu_torch
-        from nodal_tpu_torch.ops import (band, block_lu, block_thomas, grid,
-                                         lu, pcr, sband, scalar_band,
-                                         stencil, tridiag)
+        from nodal_tpu_torch.ops import (band, block_lu, block_thomas,
+                                         fused_cg, grid, lu, pcr, sband,
+                                         scalar_band, stencil, tridiag)
         from nodal_tpu_torch.utils import kernels
         from nodal_tpu_torch.utils.gridgen import ladder_rows
     except ImportError as e:
@@ -1484,6 +1882,12 @@ def main() -> None:
           "device": torch.cuda.get_device_name(0)})
 
     t0 = time.perf_counter()
+
+    def clock(after: str) -> None:
+        """Seconds since the build started, at the end of a stage."""
+        emit({"phase": "clock", "after": after,
+              "seconds": time.perf_counter() - t0})
+
     kernels.load_library()
     emit({"phase": "build", "library": kernels.library_path().name,
           "seconds": time.perf_counter() - t0})
@@ -1498,6 +1902,7 @@ def main() -> None:
           "sband_solve": {str(k): v for k, v in sb_worst.items()},
           "band_solve": {str(k): v for k, v in bt_worst.items()},
           "lu_solve": {str(k): v for k, v in lu_worst.items()}})
+    clock("solver kernels")
     launches = phase_path("ladder", ladder_rows(LADDER_RUNGS), BATCH,
                           "tridiag", (pcr.pcr_solve,), ("auto", False))
     sb = (sband.sband_solve_multi,)
@@ -1533,16 +1938,29 @@ def main() -> None:
         functools.partial(branch_check, kernel=lu.lu_solve_factored))
     phase_path("opchain", opchain_rows(OPCHAIN_STAGES), BATCH, "dense", None,
                ("auto", False))
+    clock("sweep paths")
     phase_band_accuracy("lattice", lattice_rows(20, 10, 10), GENERAL_BATCH)
     phase_band_accuracy("widemesh", grid_circuit_rows(100, 100),
                         MIDSIZE_BATCH)
     phase_profile("lattice", lattice_rows(20, 10, 10), GENERAL_BATCH)
     phase_profile("randnet", randnet_rows(), GENERAL_BATCH)
+    clock("sweep accuracy and profiles")
     st_worst, st_timing = phase_stencil_kernels(stencil)
     emit({"phase": "kernel_check_worst",
           "stencil": {f"{k[0]} {k[1]}": v for k, v in st_worst.items()}})
-    st_launches = phase_grid(grid, stencil)
-    phase_grid_profile(grid, stencil)
+    clock("stencil kernels")
+    fc_worst, fc_timing = phase_fused_cg_kernels(fused_cg)
+    emit({"phase": "kernel_check_worst",
+          "fused_cg": {f"{k[0]} {k[1]}": v for k, v in fc_worst.items()}})
+    clock("fused CG kernels")
+    st_launches, fc_launches = phase_grid(grid, stencil, fused_cg)
+    clock("grid paths")
+    phase_grid_profile(grid, stencil, fused_cg, fused=False)
+    phase_grid_profile(grid, stencil, fused_cg, fused=True)
+    clock("grid profiles")
+    bwd_launches = phase_adjoint()
+    emit({"phase": "adjoint_launches", "backward": bwd_launches})
+    clock("adjoint")
 
     emit(card)  # again beside the summary, which a tail of the output keeps
     emit({"kernels": [
@@ -1570,6 +1988,12 @@ def main() -> None:
                              ("presmooth_restrict", 211),
                              ("prolong_postsmooth", 286),
                              ("vcycle", 380))),
+        *(kernel_entry(name, "nodal_tpu_torch/csrc/cg.cu",
+                       f"nodal_tpu/ops/pallas_cg.py:{line}",
+                       fc_launches[name],
+                       fc_timing[(name, (1, 1024, 1024), torch.float32)])
+          for name, line in (("stencil_partials", 47),
+                             ("update_partials", 94))),
     ]})
     check("jax" not in sys.modules, "jax was imported")
     emit({"ok": True, "device": {"platform": "gpu",

@@ -19,8 +19,9 @@ CUDA block-Thomas kernel of :mod:`nodal_tpu_torch.ops.block_thomas`),
 blocked-LU kernel of :mod:`nodal_tpu_torch.ops.lu`), ``schur``
 (branch-equation circuits with an SPD node block: one of those kernels
 with the border columns as extra right-hand sides) and ``dense`` (what is
-left: the library's pivoted LU), and the exact-f64 defect-correction
-contract layer that ``refine="auto"`` wraps around each.  The adjoint,
+left: the library's pivoted LU), the exact-f64 defect-correction
+contract layer that ``refine="auto"`` wraps around each, and the adjoint
+(:func:`make_adjoint_solver`) that makes every tier differentiable.
 Monte Carlo and sensitivities are absent (ROADMAP.md Queue 1).
 
 Device policy: a solver runs on the device it is given (default
@@ -305,6 +306,64 @@ def make_dense_core(stamps: StampTensors, dtype, refine: bool = False):
                                   resolve, iters=3)
 
     return core
+
+
+class _AdjointSolve(torch.autograd.Function):
+    """The implicit-function VJP of :func:`make_adjoint_solver`."""
+
+    @staticmethod
+    def forward(ctx, params_batch, stamps, solve_batch, solve_rhs_t):
+        # Autograd never sees the inside of the solve, whose kernels have no
+        # autograd rule and whose plain versions update in place.
+        with torch.no_grad():
+            x = solve_batch(params_batch)
+        ctx.save_for_backward(params_batch, x)
+        ctx.stamps, ctx.solve_rhs_t = stamps, solve_rhs_t
+        return x
+
+    @staticmethod
+    def backward(ctx, xbar):
+        pb, x = ctx.saved_tensors
+        stamps = ctx.stamps
+        lam = ctx.solve_rhs_t(pb, xbar.contiguous())
+        wd = torch.promote_types(lam.dtype, x.dtype)
+        lam, x = lam.to(wd), x.to(wd)
+        dev = x.device
+        g_rows, g_cols, rhs_rows = (
+            device_table(stamps, name, getattr(stamps, name), dev, torch.long)
+            for name in ("g_rows", "g_cols", "rhs_rows"))
+        gbar = -(lam[:, g_rows] * x[:, g_cols])
+        rhsbar = lam[:, rhs_rows]
+        with torch.enable_grad():
+            p = pb.detach().requires_grad_()
+            g_vals, rhs_vals = stamp_values(stamps, p)
+            (pbar,) = torch.autograd.grad(
+                (g_vals, rhs_vals), p, (gbar.to(p.dtype), rhsbar.to(p.dtype)))
+        return pbar.to(pb.dtype), None, None, None
+
+
+def make_adjoint_solver(stamps: StampTensors, solve_batch, solve_rhs_t):
+    """Implicit-function VJP around a batched MNA solve: the counterpart of
+    the JAX package's ``custom_vjp``.
+
+    ``solve_batch(pb) -> x`` solves ``G(p)·x = b(p)`` per batch row;
+    ``solve_rhs_t(pb, rhs) -> λ`` solves the transposed system against a
+    natural-order RHS.  The forward pass runs ``solve_batch`` outside
+    autograd; reverse mode is one adjoint solve ``Gᵀλ = x̄`` (the same
+    kernels: resistive operators are symmetric, branch-equation ones
+    transpose by swapping the Schur border), cast to the promoted working
+    dtype, then the COO chain rule ``v̄_G[e] = −λ[row_e]·x[col_e]``,
+    ``v̄_rhs[e] = λ[row_e]``, pulled back to the parameters through
+    ``stamp_values``'s own autograd.  The gradient comes back in the
+    parameters' dtype.  Cost: one extra solve a backward pass.  Reverse
+    mode only; a second derivative is not supported.
+    """
+
+    def solve(params_batch):
+        return _AdjointSolve.apply(params_batch, stamps, solve_batch,
+                                   solve_rhs_t)
+
+    return solve
 
 
 def _transposed_stamps(stamps: StampTensors) -> StampTensors:
@@ -881,13 +940,17 @@ class BatchedSolver:
 
     def _finalize(self, solve_batch, solve_rhs_t):
         """Wrap the method's raw solver in the contract layer when
-        ``refine="auto"`` asked for it."""
+        ``refine="auto"`` asked for it, then in the adjoint
+        (:func:`make_adjoint_solver`): every solver is differentiable, on
+        the card through its tier's kernels, which have no autograd rule
+        of their own."""
         if self._auto_escalate:
             solve_batch = _escalating_solver(self.stamps, solve_batch)
             solve_rhs_t = _escalating_solver(self.stamps, solve_rhs_t,
                                              transpose=True)
-        self._solve = solve_batch
-        self._solve_rhs_t = solve_rhs_t
+        self._solve_rhs_t = solve_rhs_t  # tests and diagnostics
+        self._solve = make_adjoint_solver(self.stamps, solve_batch,
+                                          solve_rhs_t)
 
     def _params(self, params_batch, dtype) -> torch.Tensor:
         params_batch = torch.as_tensor(params_batch, dtype=dtype,

@@ -56,7 +56,14 @@
 
 #include <cstddef>
 
+#include "grid_common.cuh"
+
 namespace {
+
+using nodal_grid::block_sum;
+using nodal_grid::ceil_div;
+using nodal_grid::lap_point;
+using nodal_grid::mirror;
 
 constexpr int kThreads = 256;      // tiled kernels
 constexpr int kBlockThreads = 512; // single-block kernels (<= 512: see pcr.cu)
@@ -70,21 +77,11 @@ constexpr int kDefaultSmem = 48 * 1024;
 constexpr int kMaxSmem = 232448;   // 227 KB a block on the H100
 constexpr int kMeanChunk = 4096;   // values a block sums in mean_partials
 
-// Index i of the symmetric (mirror) extension of [0, n): period 2n.
-__device__ __forceinline__ int mirror(int i, int n) {
-  const int p = 2 * n;
-  int j = i % p;
-  if (j < 0) j += p;
-  return j < n ? j : p - 1 - j;
-}
-
-// One weighted-Jacobi update; the neighbour sum in the plain version's
-// order (up + down + left + right).
+// One weighted-Jacobi update.
 template <typename T>
 __device__ __forceinline__ T sweep_point(T v, T rr, T up, T dn, T lf, T rt,
                                          T weight, T c) {
-  const T nbr = ((up + dn) + lf) + rt;
-  return v + c * (rr - weight * (T(4) * v - nbr));
+  return v + c * (rr - lap_point(v, up, dn, lf, rt, weight));
 }
 
 // Fine cell (i, j) of the bilinear prolongation of the coarse field zc
@@ -162,7 +159,7 @@ __device__ __forceinline__ T lap_at(const T* x, int t, int i, int j, int h,
   const T dn = i < h - 1 ? x[t + w] : v;
   const T lf = j > 0 ? x[t - 1] : v;
   const T rt = j < w - 1 ? x[t + 1] : v;
-  return weight * (T(4) * v - (((up + dn) + lf) + rt));
+  return lap_point(v, up, dn, lf, rt, weight);
 }
 
 template <typename T>
@@ -192,21 +189,6 @@ __device__ void field_sweeps(T* x, const T* r, T* tmp, int h, int w, int n,
     for (int t = threadIdx.x; t < N; t += blockDim.x) x[t] = src[t];
     __syncthreads();
   }
-}
-
-// Deterministic block sum: a fixed stride per thread, then a fixed tree.
-// blockDim.x must be a power of two.
-template <typename T>
-__device__ T block_sum(T s, T* red) {
-  red[threadIdx.x] = s;
-  __syncthreads();
-  for (int k = blockDim.x / 2; k > 0; k >>= 1) {
-    if (threadIdx.x < k) red[threadIdx.x] += red[threadIdx.x + k];
-    __syncthreads();
-  }
-  const T total = red[0];
-  __syncthreads();
-  return total;
 }
 
 template <typename T>
@@ -274,7 +256,7 @@ __global__ void __launch_bounds__(kThreads)
       v = c * R[q]; up = c * R[q - RW]; dn = c * R[q + RW];
       lf = c * R[q - 1]; rt = c * R[q + 1];
     }
-    S[t] = R[q] - weight * (T(4) * v - (((up + dn) + lf) + rt));
+    S[t] = R[q] - lap_point(v, up, dn, lf, rt, weight);
   }
   __syncthreads();
   for (int t = threadIdx.x; t < kCoarseTile * kCoarseTile;
@@ -483,8 +465,6 @@ int opt_in(K kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes)));
 }
-
-int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
 template <typename T>
 int launch_jacobi(const T* x, const T* r, T* out, int B, int h, int w,

@@ -15,9 +15,11 @@ transfers and the same edge weight on every level
 (:func:`nodal_tpu_torch.ops.stencil.vcycle`).  On CUDA tensors its stencil
 work runs in the hand-written kernels of ``csrc/stencil.cu``; the CG's
 vector algebra, its dot products, the operator's matvec and the final mean
-projection stay torch.  Everything is batched over a leading dimension, so
-many injection fields (:func:`grid_equivalent_resistance_many`) solve as one
-batched CG.
+projection stay torch, unless ``fused_cg=True`` asks for the fused loop of
+:mod:`nodal_tpu_torch.ops.fused_cg`, whose matvec, update and their
+reductions run in ``csrc/cg.cu``.  Everything is batched over a leading
+dimension, so many injection fields (:func:`grid_equivalent_resistance_many`)
+solve as one batched CG.
 
 Entry points run on the card (``device="cuda"``) and raise when CUDA is
 absent; the CPU, with the plain torch cycle, only when asked for.
@@ -31,6 +33,7 @@ import torch
 from nodal_tpu_torch.batch import resolve_device
 from nodal_tpu_torch.ops import stencil
 from nodal_tpu_torch.ops.cg import SolveInfo, cg
+from nodal_tpu_torch.ops.fused_cg import fused_grid_cg
 
 # Weighted-Jacobi smoothing factor: 4/5 is optimal-ish for the 2D 5-point
 # stencil's high-frequency band.
@@ -115,11 +118,14 @@ def grid_solve(h: int, w: int, b, *, dtype=torch.float32, tol=1e-7,
 
     Returns ``(x, SolveInfo)`` with x mean-zero, in the shape of ``b``; the
     SolveInfo fields are [B] for a batch and scalars for one field.
+
+    ``fused_cg`` (opt-in, as in the JAX package) runs the CG of
+    :func:`~nodal_tpu_torch.ops.fused_cg.fused_grid_cg` with the kernel
+    cycle as its preconditioner when the fields are on CUDA, ``mg`` is set
+    and ``mg_backend`` is ``"auto"``; elsewhere (the CPU, the plain cycle,
+    no multigrid) the flag is ignored, as the JAX package ignores it away
+    from its Pallas backend.
     """
-    if fused_cg:
-        raise NotImplementedError(
-            "grid_solve(fused_cg=True): the fused CG kernels (pallas_cg.py) "
-            "are not ported yet (ROADMAP.md Queue 2 row 11)")
     if mg_backend not in _MG_BACKENDS:
         raise ValueError(f"mg_backend must be one of {_MG_BACKENDS}, not "
                          f"{mg_backend!r}")
@@ -134,8 +140,12 @@ def grid_solve(h: int, w: int, b, *, dtype=torch.float32, tol=1e-7,
     if maxiter is None:
         maxiter = 200 if mg else 20 * max(h, w)
     M = make_mg_preconditioner(backend=mg_backend) if mg else None
-    x, info = cg(grid_operator, b - b.mean(dim=(1, 2), keepdim=True),
-                 preconditioner=M, tol=tol, maxiter=maxiter)
+    b = b - b.mean(dim=(1, 2), keepdim=True)
+    if fused_cg and mg and mg_backend == "auto" and dev.type == "cuda":
+        x, info = fused_grid_cg(b, M, tol=tol, maxiter=maxiter)
+    else:
+        x, info = cg(grid_operator, b, preconditioner=M, tol=tol,
+                     maxiter=maxiter)
     if single:
         return x[0], SolveInfo(*(t[0] for t in info))
     return x, info

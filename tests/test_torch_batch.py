@@ -142,7 +142,7 @@ def test_contract_layer_escalates_like_reference(ladder):
     still meets the contract."""
     jc, stamps, params = ladder
     calls = []
-    raw_t = BatchedSolver(stamps, refine=False, device="cpu")._solve
+    raw_t = BatchedSolver(stamps, refine=False, device="cpu")._solve_rhs_t
     raw_j = _jax_solver(jc, refine=False)._solve_rhs_t
 
     def inner_t(pb, rhs=None):

@@ -33,6 +33,17 @@ PAIRS16 = np.array([[[0, 0], [15, 15]], [[3, 3], [4, 5]],
                     [[8, 8], [9, 10]]])
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for these small tensors: beside other test
+    processes the default pool oversubscribes the cores, and each tiny
+    parallel region then waits on the others."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_laplacian_matvec_matches_dense():
     h, w = 5, 6
     x = np.random.default_rng(0).standard_normal((h, w))
@@ -210,11 +221,18 @@ def test_device_policy():
 
 
 def test_refusals():
+    """Bad arguments raise; ``fused_cg=True`` does not: on the CPU it
+    follows the JAX gate, which ignores the flag away from its Pallas
+    backend, and gives the unfused solve bit for bit."""
     with pytest.raises(ValueError, match="mg_backend"):
         grid.grid_solve(8, 8, np.zeros((8, 8)), device="cpu",
                         mg_backend="pallas")
-    with pytest.raises(NotImplementedError, match="Queue 2 row 11"):
-        grid.grid_solve(8, 8, np.zeros((8, 8)), device="cpu", fused_cg=True)
+    rhs = np.zeros((8, 8))
+    rhs[1, 2], rhs[6, 5] = 1.0, -1.0
+    fused = grid.grid_solve(8, 8, rhs, device="cpu", fused_cg=True)
+    plain = grid.grid_solve(8, 8, rhs, device="cpu")
+    assert torch.equal(fused[0], plain[0])
+    assert all(torch.equal(a, b) for a, b in zip(fused[1], plain[1]))
     with pytest.raises(ValueError, match="shape"):
         grid.grid_solve(8, 8, np.zeros((8, 9)), device="cpu")
     with pytest.raises(ValueError, match="outside"):

@@ -106,7 +106,8 @@ def test_port_imports_neither_jax_nor_reference():
     code = ("import nodal_tpu_torch, nodal_tpu_torch.batch, "
             "nodal_tpu_torch.ops.pcr, nodal_tpu_torch.utils.kernels, "
             "nodal_tpu_torch.ops.grid, nodal_tpu_torch.ops.cg, "
-            "nodal_tpu_torch.ops.stencil, sys; "
+            "nodal_tpu_torch.ops.stencil, nodal_tpu_torch.ops.fused_cg, "
+            "sys; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'nodal_tpu' not in sys.modules, 'nodal_tpu imported'")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
