@@ -1,0 +1,242 @@
+"""Two checkouts' blocked-LU and block-Thomas kernels, in turns on one GPU.
+
+    python3 chip_compare.py ROOT [ROOT ...]
+
+Each ROOT is a directory that holds a ``nodal_tpu_torch`` package: this
+checkout (``.``) or another commit unpacked beside it, for instance
+
+    git archive HEAD~1 | tar -x -C _checkout      # _checkout/ is git-ignored
+    python3 chip_compare.py _checkout . . _checkout
+
+Each ROOT runs in a process of its own, in the order given, and builds its
+own kernels.  It measures, with this checkout's ``chip_smoke.py`` helpers:
+
+* the blocked LU at ``chip_smoke.LU_TIME_SHAPES`` and the block Thomas at
+  ``chip_smoke.BAND_TIME_SHAPES``, f32 and f64: kernel against plain
+  device ms (``time_lu``, ``time_band``), the factorization's and the
+  sweeps' device ms by kernel name, and on the Laplacian class in f32 each
+  solve's distance from the f64 kernel's (``kernel_vs_f64``);
+* the block Thomas's raw f32 error on the ``lattice`` and ``widemesh`` bands
+  (``phase_band_accuracy``);
+* ``BatchedSolver(refine="auto")`` solves/s (CUDA events, median of 5) of
+  the paths that run these kernels, with the kernels' launches in a call.
+
+Prints the card's name and power limit, then one JSON line a measurement
+tagged with its ROOT; with ``--mma`` first the FP64 ``mma.sync`` shapes'
+rates.  Imports no JAX.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import importlib.util
+import json
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+HERE = Path(__file__).resolve().parent
+
+# (label, rows from chip_smoke's builders, batch, wrappers to count).
+AUTO_PATHS = [
+    ("randnet", lambda cs: cs.randnet_rows(), "GENERAL_BATCH", "lu"),
+    ("randnet4k", lambda cs: cs.randnet_rows(cs.RANDNET4K_NODES,
+                                             cs.RANDNET4K_EDGES),
+     "RANDNET4K_BATCH", "lu"),
+    ("randbranch", lambda cs: cs.randnet_rows(branch=True), "GENERAL_BATCH",
+     "lu"),
+    ("lattice", lambda cs: cs.lattice_rows(20, 10, 10), "GENERAL_BATCH",
+     "band"),
+    ("widemesh", lambda cs: cs.grid_circuit_rows(100, 100), "MIDSIZE_BATCH",
+     "band"),
+    ("widelattice", lambda cs: cs.lattice_rows(12, 14, 14), "MIDSIZE_BATCH",
+     "band"),
+    ("widebranch", lambda cs: cs.grid_circuit_rows(64, 64, branch=True),
+     "GENERAL_BATCH", "band"),
+]
+
+MMA_SRC = r"""
+#include <cuda_runtime.h>
+namespace {
+template <int S>
+__global__ void rate_kernel(double* sink, int iters) {
+  double a[8], b[4], d[4][4] = {};
+  for (int i = 0; i < 8; ++i) a[i] = 1e-3 * (threadIdx.x + i);
+  for (int i = 0; i < 4; ++i) b[i] = 1e-3 * (threadIdx.x - i);
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (S == 0)
+        asm volatile("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
+                     "{%0,%1}, {%2}, {%3}, {%0,%1};\n"
+                     : "+d"(d[u][0]), "+d"(d[u][1]) : "d"(a[u]), "d"(b[u]));
+      if (S == 1)
+        asm volatile("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+                     "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+                     : "+d"(d[u][0]), "+d"(d[u][1]), "+d"(d[u][2]),
+                       "+d"(d[u][3])
+                     : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]),
+                       "d"(b[0]), "d"(b[1]));
+    }
+  }
+  double s = 0;
+  for (int u = 0; u < 4; ++u) for (int i = 0; i < 4; ++i) s += d[u][i];
+  if (s == 12345.0) sink[0] = s;
+}
+}  // namespace
+extern "C" int mma_rate(int shape, double* sink, int blocks, int iters) {
+  if (shape == 0) rate_kernel<0><<<blocks, 256>>>(sink, iters);
+  if (shape == 1) rate_kernel<1><<<blocks, 256>>>(sink, iters);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def smoke_helpers():
+    """This checkout's chip_smoke.py, loaded under a name of its own so
+    that another ROOT's copy is never picked up."""
+    spec = importlib.util.spec_from_file_location("chip_smoke_helpers",
+                                                  HERE / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def mma_rates() -> None:
+    """TFLOP/s of the FP64 tensor cores by mma.sync shape: 1056 blocks of
+    8 warps, each issuing 4 independent chains of 4096 products."""
+    with tempfile.TemporaryDirectory() as tmp:
+        src, lib_path = Path(tmp) / "mma.cu", Path(tmp) / "libmma.so"
+        src.write_text(MMA_SRC)
+        proc = subprocess.run(
+            ["/usr/local/cuda/bin/nvcc", "-gencode",
+             "arch=compute_90a,code=sm_90a", "-O3", "-shared", "-Xcompiler",
+             "-fPIC", "-o", str(lib_path), str(src)],
+            capture_output=True, text=True)
+        if proc.returncode:
+            sys.exit(f"chip_compare: nvcc failed: {proc.stderr[-2000:]}")
+        lib = ctypes.CDLL(str(lib_path))
+        lib.mma_rate.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                                 ctypes.c_int]
+        sink = torch.zeros(1, dtype=torch.float64, device="cuda")
+        blocks, iters = 132 * 8, 4096
+        for shape, (name, mnk) in enumerate((("m8n8k4", 256),
+                                             ("m16n8k8", 1024))):
+            lib.mma_rate(shape, sink.data_ptr(), blocks, 16)
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            err = lib.mma_rate(shape, sink.data_ptr(), blocks, iters)
+            end.record()
+            end.synchronize()
+            flops = blocks * 8 * iters * 4 * 2 * mnk
+            emit({"phase": "mma_f64", "shape": name, "launch_err": err,
+                  "tflops": flops / start.elapsed_time(end) / 1e9})
+
+
+def measure(root: Path) -> None:
+    sys.path.insert(0, str(root))
+    cs = smoke_helpers()
+    import nodal_tpu_torch
+    from nodal_tpu_torch import BatchedSolver, Circuit, Netlist
+    from nodal_tpu_torch.ops import band, block_lu, block_thomas, lu
+    from nodal_tpu_torch.utils import kernels
+
+    pkg = Path(nodal_tpu_torch.__file__).resolve().parent
+    if pkg.parent != root.resolve():
+        sys.exit(f"chip_compare: nodal_tpu_torch came from {pkg}")
+    tag = {"root": str(root)}
+    t0 = time.perf_counter()
+    kernels.load_library()
+    emit({**tag, "phase": "build", "seconds": time.perf_counter() - t0})
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for B, n, r in cs.LU_TIME_SHAPES:
+        for dtype in (torch.float32, torch.float64):
+            A, R = cs.random_laplacian(B, n, r, dtype, gen)
+            t = cs.time_lu(lu, block_lu, A, R)
+            bound = cs.bound_ms(cs.lu_flops(n, r) * B,
+                                (n * n + 2 * n * r) * B * A.element_size(),
+                                dtype)
+            emit({**tag, "phase": "kernel_time", "kernel": "lu_solve",
+                  "B": B, "n_pad": n, "r": r, "dtype": str(dtype), **t,
+                  **bound})
+            del A, R
+            torch.cuda.empty_cache()
+    for B, nb, kb, r in cs.BAND_TIME_SHAPES:
+        for dtype in (torch.float32, torch.float64):
+            W, R = cs.random_block_band(B, nb, kb, r, dtype, gen)
+            t = cs.time_band(block_thomas, band, W, R)
+            bound = cs.bound_ms(cs.block_thomas_flops(nb, kb, r) * B,
+                                nb * kb * (3 * kb + 2 * r) * B
+                                * W.element_size(), dtype)
+            emit({**tag, "phase": "kernel_time", "kernel": "band_solve",
+                  "B": B, "nb": nb, "kb": kb, "r": r, "dtype": str(dtype),
+                  **t, **bound})
+            del W, R
+            torch.cuda.empty_cache()
+    cs.phase_band_accuracy("lattice", cs.lattice_rows(20, 10, 10),
+                           cs.GENERAL_BATCH)
+    cs.phase_band_accuracy("widemesh", cs.grid_circuit_rows(100, 100),
+                           cs.MIDSIZE_BATCH)
+
+    wrappers = {"lu": (lu.lu_factor, lu.lu_solve_factored),
+                "band": (block_thomas.band_solve_multi,)}
+    for label, rows, batch, kind in AUTO_PATHS:
+        B = getattr(cs, batch)
+        circuit = Circuit(Netlist.from_rows(rows(cs)))
+        solver = BatchedSolver(circuit, dtype=torch.float32, refine="auto",
+                               device="cuda")
+        params = torch.as_tensor(cs.sweep_params(circuit, B), device="cuda")
+        for w in wrappers[kind]:
+            w.launches = 0
+        solver(params)
+        torch.cuda.synchronize()
+        launches = sum(w.launches for w in wrappers[kind])
+        times, ms = cs.median_call_ms(solver, params)
+        emit({**tag, "phase": "auto_rate", "path": label, "B": B,
+              "method": solver.method, "launches": launches,
+              "ms_reps": times, "median_ms": ms,
+              "solves_per_s": B / (ms / 1e3)})
+        del solver, params
+        torch.cuda.empty_cache()
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        sys.exit("chip_compare: CUDA is not available")
+    args = sys.argv[1:]
+    if args[:1] == ["--measure"]:
+        measure(Path(args[1]))
+        return
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    emit(smi.stdout.strip())
+    if args[:1] == ["--mma"]:
+        mma_rates()
+        args = args[1:]
+    if not args:
+        sys.exit("chip_compare: name at least one ROOT")
+    for root in args:
+        if not (Path(root) / "nodal_tpu_torch").is_dir():
+            sys.exit(f"chip_compare: {root} holds no nodal_tpu_torch")
+    for root in args:
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                               "--measure", root])
+        if proc.returncode:
+            sys.exit(f"chip_compare: {root} failed ({proc.returncode})")
+    emit(smi.stdout.strip())
+
+
+if __name__ == "__main__":
+    main()

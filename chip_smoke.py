@@ -46,8 +46,10 @@ oracle, with the tier's kernel launched in the backward pass.
 
 Each kernel is also timed against its plain version, against one PyTorch
 call that computes the same function (``torch.linalg.solve`` on the dense
-systems) and against its bound on the card.  Every phase asserts; any
-failure exits non-zero.  The last line is ``{"ok": true, "device":
+systems) and against its bound on the card; the blocked LU's and the block
+Thomas's device time is split by kernel name from a profiler trace
+(``kernel_split``: the factorization against the sweeps, the inverses
+against the products).  Every phase asserts; any failure exits non-zero.  The last line is ``{"ok": true, "device":
 {...}}``.
 
 Exits non-zero without a result when CUDA is unavailable or when the
@@ -59,6 +61,7 @@ from __future__ import annotations
 import functools
 import json
 import math
+import re
 import shutil
 import statistics
 import subprocess
@@ -235,6 +238,56 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_name(full: str) -> str:
+    """A kernel's own name out of the profiler's demangled signature:
+    ``void (anonymous namespace)::block_lu_gemm<float>(...)`` ->
+    ``block_lu_gemm``."""
+    m = re.search(r"::(\w+)\s*[<(]", full) or re.search(r"(\w+)\s*[<(]", full)
+    return m.group(1) if m else full
+
+
+def kernel_split(fn, calls: int = 3, tries: int = 3) -> dict:
+    """Device ms a ``fn()`` call spends in each kernel, by kernel name, from
+    a ``torch.profiler`` trace of ``calls`` calls after one traced warm-up
+    call that is thrown away.  The profiler at times loses events, or a
+    whole trace: an empty trace is taken again, up to ``tries`` times, and
+    then reported as not measured (a diagnostic, not a check)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    for _ in range(tries):
+        events = []
+
+        def ready(prof):
+            with tempfile.TemporaryDirectory() as tmp:
+                path = Path(tmp) / "trace.json"
+                prof.export_chrome_trace(str(path))
+                events.extend(json.loads(path.read_text())["traceEvents"])
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=calls),
+                     on_trace_ready=ready) as prof:
+            for _ in range(1 + calls):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        by_name, counts = {}, {}
+        for e in events:
+            if e.get("cat") != "kernel":
+                continue
+            name = kernel_name(e.get("name", ""))
+            by_name[name] = by_name.get(name, 0.0) + e["dur"] / 1e3 / calls
+            counts[name] = counts.get(name, 0) + 1
+        if by_name:
+            return {"device_ms": sum(by_name.values()),
+                    "by_kernel_ms": dict(sorted(by_name.items(),
+                                                key=lambda kv: -kv[1])),
+                    "launches_per_call": {k: v / calls
+                                          for k, v in counts.items()}}
+    return {"device_ms": None, "by_kernel_ms": {}, "launches_per_call": {},
+            "not_measured": f"no kernel in {tries} traces"}
 
 
 def random_bands(B: int, n: int, dtype, gen):
@@ -459,7 +512,6 @@ def phase_band_kernel(block_thomas, band):
     tensors, then both, the dense library call and the bound timed at the
     main paths' shapes."""
     gen = torch.Generator(device="cuda").manual_seed(2)
-    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
     worst = {}
     for dtype in (torch.float32, torch.float64):
         for B, nb, kb, r in BAND_SHAPES:
@@ -474,14 +526,13 @@ def phase_band_kernel(block_thomas, band):
             check(bool(torch.isfinite(got).all()),
                   f"band_solve_multi non-finite at {(B, nb, kb, r)}")
             err = rel_diff(got.reshape(B, -1), want.reshape(B, -1))
-            cfg = block_thomas.launch_config(
-                B, nb, kb, min(r, block_thomas.MAX_R), got.element_size(),
-                sm_count)
+            plan = block_thomas.launch_plan(
+                B, nb, kb, min(r, block_thomas.MAX_R), got.element_size())
             emit({"phase": "kernel_check", "kernel": "band_solve", "B": B,
                   "nb": nb, "kb": kb, "r": r, "dtype": str(dtype),
                   "max_rel_diff": err, "tol": BAND_RTOL[dtype],
-                  "launches": launches, "grid": cfg.grid,
-                  "waves": cfg.waves})
+                  "launches": launches, "chunk": plan.chunk,
+                  "calls": plan.calls})
             check(err <= BAND_RTOL[dtype],
                   f"band_solve_multi differs from the plain solver by "
                   f"{err:.3e} at {(B, nb, kb, r)} {dtype}")
@@ -504,16 +555,18 @@ def phase_band_kernel(block_thomas, band):
     for B, nb, kb, r in BAND_TIME_SHAPES:
         for dtype in (torch.float32, torch.float64):
             W, R = random_block_band(B, nb, kb, r, dtype, gen)
-            got = block_thomas.band_solve_multi(W, R)
-            want = band.band_thomas_solve(W, R)
-            max_abs = float((got - want).abs().max())
-            del got, want
-            p1 = cuda_ms(lambda: band.band_thomas_solve(W, R), reps=2,
-                         warmup=1)
-            k1 = cuda_ms(lambda: block_thomas.band_solve_multi(W, R))
-            k2 = cuda_ms(lambda: block_thomas.band_solve_multi(W, R))
-            p2 = cuda_ms(lambda: band.band_thomas_solve(W, R), reps=2,
-                         warmup=1)
+            t = time_band(block_thomas, band, W, R)
+            # The trace's launches against the host loop's plan.  The
+            # profiler drops events at times (5 of 140 a call, seen on the
+            # H100), never adds them: more than planned is a fault.
+            plan = block_thomas.launch_plan(B, nb, kb, r, W.element_size())
+            planned = plan.launches * plan.calls
+            traced = sum(v for k, v in t["split"]["launches_per_call"].items()
+                         if k.startswith("block_thomas"))
+            check(t["split"]["device_ms"] is None
+                  or 0.5 * planned <= traced <= planned,
+                  f"band_solve traced {traced} kernels a call, the plan "
+                  f"{planned}")
             n = nb * kb
             lib = library_ms(lambda c: dense_from_block_band(W[:c]),
                              lambda c: R[:c], B, n, dtype)
@@ -521,15 +574,31 @@ def phase_band_kernel(block_thomas, band):
                              n * (3 * kb + 2 * r) * B * W.element_size(),
                              dtype)
             timing[(B, nb, kb, dtype)] = {
-                "ms": min(k1, k2), "plain_ms": min(p1, p2),
-                "max_abs_err": max_abs, **lib, **bound}
+                "ms": min(t["kernel_ms"]), "plain_ms": min(t["plain_ms"]),
+                "max_abs_err": t["max_abs_err"], **lib, **bound}
             emit({"phase": "kernel_time", "kernel": "band_solve", "B": B,
-                  "nb": nb, "kb": kb, "r": r, "dtype": str(dtype),
-                  "kernel_ms": [k1, k2], "plain_ms": [p1, p2],
-                  "max_abs_err": max_abs, **lib, **bound})
+                  "nb": nb, "kb": kb, "r": r, "dtype": str(dtype), **t,
+                  "planned_launches": planned, **lib, **bound})
             del W, R
             torch.cuda.empty_cache()
     return worst, timing
+
+
+def time_band(block_thomas, band, W, R) -> dict:
+    """The block-Thomas kernels against their plain version on ``W``,
+    ``R``: device ms in turns (plain, kernel, kernel, plain), the largest
+    difference, and the kernels' device ms by name (``kernel_split``)."""
+    got = block_thomas.band_solve_multi(W, R)
+    want = band.band_thomas_solve(W, R)
+    max_abs = float((got - want).abs().max())
+    del got, want
+    p1 = cuda_ms(lambda: band.band_thomas_solve(W, R), reps=2, warmup=1)
+    k1 = cuda_ms(lambda: block_thomas.band_solve_multi(W, R))
+    k2 = cuda_ms(lambda: block_thomas.band_solve_multi(W, R))
+    p2 = cuda_ms(lambda: band.band_thomas_solve(W, R), reps=2, warmup=1)
+    split = kernel_split(lambda: block_thomas.band_solve_multi(W, R))
+    return {"kernel_ms": [k1, k2], "plain_ms": [p1, p2],
+            "max_abs_err": max_abs, "split": split}
 
 
 def random_dominant(B: int, n: int, r: int, dtype, gen):
@@ -663,45 +732,70 @@ def phase_lu_kernel(lu, block_lu):
     for B, n, r in LU_TIME_SHAPES:
         for dtype in (torch.float32, torch.float64):
             A, R = random_laplacian(B, n, r, dtype, gen)
-            W = torch.empty_like(A)
-            want = block_lu.blocked_solve_factored(
-                block_lu.blocked_factor(A), R)
-            got = lu.lu_solve_multi(W.copy_(A), R)
-            max_abs = float((got - want).abs().max())
-            del got, want
-            torch.cuda.empty_cache()
-
-            def plain():
-                return block_lu.blocked_solve_factored(
-                    block_lu.blocked_factor(A), R)
-
-            def kernel():  # the factorization is in place: a fresh copy
-                return lu.lu_solve_multi(W.copy_(A), R)
-
-            # Alternate plain, kernel, kernel, plain; the copy is timed
-            # alone and taken off the kernel's readings.
-            p1 = cuda_ms(plain, reps=3, warmup=1)
-            k1 = cuda_ms(kernel, reps=3, warmup=1)
-            copy = cuda_ms(lambda: W.copy_(A), reps=3, warmup=1)
-            k2 = cuda_ms(kernel, reps=3, warmup=1)
-            p2 = cuda_ms(plain, reps=3, warmup=1)
-            del W
-            torch.cuda.empty_cache()
+            t = time_lu(lu, block_lu, A, R)
             lib = library_ms(lambda c: A[:c], lambda c: R[:c], B, n, dtype)
             bound = bound_ms(lu_flops(n, r) * B,
                              (n * n + 2 * n * r) * B * A.element_size(),
                              dtype)
             timing[(B, n, r, dtype)] = {
-                "ms": min(k1, k2) - copy, "plain_ms": min(p1, p2),
-                "max_abs_err": max_abs, **lib, **bound}
+                "ms": min(t["kernel_ms"]), "plain_ms": min(t["plain_ms"]),
+                "max_abs_err": t["max_abs_err"], **lib, **bound}
             emit({"phase": "kernel_time", "kernel": "lu_solve", "B": B,
-                  "n_pad": n, "r": r, "dtype": str(dtype),
-                  "kernel_ms": [k1 - copy, k2 - copy], "copy_ms": copy,
-                  "plain_ms": [p1, p2], "max_abs_err": max_abs, **lib,
+                  "n_pad": n, "r": r, "dtype": str(dtype), **t, **lib,
                   **bound})
             del A, R
             torch.cuda.empty_cache()
     return worst, timing
+
+
+def time_lu(lu, block_lu, A, R) -> dict:
+    """The blocked-LU kernels against their plain version on ``A``, ``R``:
+    device ms in turns (plain, kernel, kernel, plain; the in-place factor's
+    fresh copy of A timed alone and taken off), the largest difference,
+    the factorization's and the sweeps' device ms by kernel name
+    (``kernel_split``) and, in f32, each solve's distance from the f64
+    kernel's (``kernel_vs_f64``, ``plain_vs_f64``)."""
+    B = A.shape[0]
+    W = torch.empty_like(A)
+    want = block_lu.blocked_solve_factored(block_lu.blocked_factor(A), R)
+    got = lu.lu_solve_multi(W.copy_(A), R)
+    out = {"max_abs_err": float((got - want).abs().max())}
+    if A.dtype == torch.float32:
+        x64 = lu.lu_solve_multi(A.double(), R.double())
+        out["kernel_vs_f64"] = rel_diff(got.reshape(B, -1),
+                                        x64.reshape(B, -1))
+        out["plain_vs_f64"] = rel_diff(want.reshape(B, -1),
+                                       x64.reshape(B, -1))
+        del x64
+    del got, want
+    torch.cuda.empty_cache()
+
+    def plain():
+        return block_lu.blocked_solve_factored(block_lu.blocked_factor(A), R)
+
+    def kernel():  # the factorization is in place: a fresh copy
+        return lu.lu_solve_multi(W.copy_(A), R)
+
+    p1 = cuda_ms(plain, reps=3, warmup=1)
+    k1 = cuda_ms(kernel, reps=3, warmup=1)
+    copy = cuda_ms(lambda: W.copy_(A), reps=3, warmup=1)
+    k2 = cuda_ms(kernel, reps=3, warmup=1)
+    p2 = cuda_ms(plain, reps=3, warmup=1)
+    factor = kernel_split(lambda: lu.lu_factor(W.copy_(A)))
+    F = lu.lu_factor(W.copy_(A))
+    solve = kernel_split(lambda: lu.lu_solve_factored(F, R))
+    split = {name: {k: {n: v for n, v in sp[k].items()
+                        if n.startswith("block_lu")}
+                    for k in ("by_kernel_ms", "launches_per_call")}
+             for name, sp in (("factor", factor), ("solve", solve))}
+    del W, F
+    torch.cuda.empty_cache()
+    return {"kernel_ms": [k1 - copy, k2 - copy], "copy_ms": copy,
+            "plain_ms": [p1, p2], **out,
+            **{f"{name}_ms": (sum(split[name]["by_kernel_ms"].values())
+                              if sp["device_ms"] is not None else None)
+               for name, sp in (("factor", factor), ("solve", solve))},
+            "split": split}
 
 
 def sweep_params(circuit, batch: int = BATCH):

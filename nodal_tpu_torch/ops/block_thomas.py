@@ -1,17 +1,19 @@
-"""Batched block-Thomas solve: the hand-written CUDA kernel and its wrapper.
+"""Batched block-Thomas solve: the hand-written CUDA kernels and their
+wrapper.
 
 Counterpart of the Pallas kernels of ``nodal_tpu/ops/pallas_band.py``
 (``pallas_band_solve(_multi)`` and the streaming
-``pallas_band_solve(_multi)_stream``), which one kernel,
-``csrc/block_thomas.cu``, replaces.  Its plain version is
+``pallas_band_solve(_multi)_stream``), which one source,
+``csrc/block_thomas.cu``, replaces: a host loop over the block rows whose
+every launch covers the batch.  Its plain version is
 :func:`nodal_tpu_torch.ops.band.band_thomas_solve`.
 
 :func:`band_solve_multi` takes the plain version only for tensors on the
-CPU.  For CUDA tensors it launches the kernel or raises: there is no
-fallback.  The kernel serves every shape a plan admits: kb in
+CPU.  For CUDA tensors it launches the kernels or raises: there is no
+fallback.  The kernels serve every shape a plan admits: kb in
 ``_KB_CHOICES``, any number of block rows, any batch, in float32 and
-float64; more than ``MAX_R`` right-hand sides take one launch per slice of
-``MAX_R`` columns.
+float64; more than ``MAX_R`` right-hand sides take one host loop per slice
+of ``MAX_R`` columns.
 """
 
 from __future__ import annotations
@@ -21,54 +23,63 @@ from dataclasses import dataclass
 import torch
 
 from nodal_tpu_torch.ops.band import _KB_CHOICES, band_thomas_solve
+from nodal_tpu_torch.ops.lu import factor_launches, factor_scratch
 
-#: Right-hand sides one launch takes.
+#: Right-hand sides one host loop takes.
 MAX_R = 128
 
-#: Threads a block; must match ``kThreads`` in ``csrc/block_thomas.cu``.
-THREADS = 256
+#: Panel width of the Schur blocks' LU; must match ``kBlock`` in
+#: ``csrc/dense_tile.cuh``.
+PANEL = 128
 
-#: Resident blocks launched per SM.  Two beat one by 1.3-1.5× at every
-#: shape ``chip_grid_sweep.py`` times (kb 128 and 256, nb 10 to 79, B 256
-#: and 1024, f32 and f64); at 128 registers a thread no more fit.
-BLOCKS_PER_SM = 2
+#: Right-hand sides (kb = 128) that the inverse's launch takes along;
+#: must match ``kNarrowCols`` in ``csrc/dense_tile.cuh``.
+APPLY_R = 4
 
-#: Upper bound on the scratch of one launch; the grid is cut so that its
-#: blocks' scratch areas fit (at least one block).
+#: Upper bound on the scratch of one host loop: the batch is cut into
+#: chunks whose scratch fits (at least one system a chunk).
 SCRATCH_BYTES_MAX = 4 << 30
-
-#: Shared memory a block may give the Schur block S: BLOCKS_PER_SM blocks
-#: of it, plus each block's static tiles (``Shared`` in the source, at most
-#: 41,472 bytes in f64), must fit the SM's 228 KiB.
-S_SHARED_BYTES_MAX = 64 << 10
 
 
 @dataclass(frozen=True)
-class LaunchConfig:
-    grid: int           # blocks; each owns a scratch area
-    waves: int          # systems a block solves in turn, at most
-    scratch_elems: int  # scratch values of the whole grid
-    smem_bytes: int     # dynamic shared memory holding S, or 0
+class LaunchPlan:
+    chunk: int          # systems one host loop takes
+    calls: int          # host loops that cover the batch
+    slot_ld: int        # row length of a [C_t | y_t] slot
+    scratch_elems: int  # scratch values of one host loop
+    launches: int       # kernel launches of one host loop
 
 
-def launch_config(B: int, nb: int, kb: int, r: int, itemsize: int,
-                  sm_count: int) -> LaunchConfig:
-    """How :func:`band_solve_multi` launches the kernel.
+def launch_plan(B: int, nb: int, kb: int, r: int,
+                itemsize: int) -> LaunchPlan:
+    """How :func:`band_solve_multi` drives the kernels (the host loop of
+    ``csrc/block_thomas.cu``, which lays the scratch out the same way).
 
-    Each block solves one system at a time with a scratch area of kb·kb
-    (the Schur block) plus nb·kb·(kb + r) values (one [C_t | y_t] slot a
-    block row) and walks the batch in ``waves`` turns.  The grid has
-    ``BLOCKS_PER_SM`` blocks an SM, at most one a system, and at most
-    ``SCRATCH_BYTES_MAX`` of scratch.  Where S fits
-    ``S_SHARED_BYTES_MAX`` (kb = 128 in f32) it lives in shared memory
-    instead, off the L2 round trips of every elimination panel.
+    Every launch covers a chunk of the batch.  A chunk's scratch is, a
+    system: the Schur block S (kb·kb) and the right-hand side (kb·r), one
+    [C_t | y_t] slot a block row (nb·kb·slot_ld, rows padded to 4 values so
+    that the backward sweep reads them with 16-byte loads), and for
+    kb > 128 the LU's panel products P (128·(kb − 128)) and Z
+    (128·(kb + r)).  Chunks hold at most ``SCRATCH_BYTES_MAX``.
+
+    Launches a block row: at kb = 128 three for r <= ``APPLY_R`` (S; S⁻¹
+    with rhs and y_t formed in the same launch; C_t), else five (S, rhs,
+    S⁻¹, C_t, y_t); at q = kb/128 panels three (S, the slot's rhs and U_t),
+    the LU of S (:func:`~nodal_tpu_torch.ops.lu.factor_launches`) and its
+    solve (4q − 2 products); plus one a block row in the backward sweep.
     """
-    per_block = kb * kb + nb * kb * (kb + r)
-    grid = max(1, min(B, sm_count * BLOCKS_PER_SM,
-                      SCRATCH_BYTES_MAX // (per_block * itemsize)))
-    s_bytes = kb * kb * itemsize
-    return LaunchConfig(grid, -(-B // grid), grid * per_block,
-                        s_bytes if s_bytes <= S_SHARED_BYTES_MAX else 0)
+    ls = kb + -(-r // 4) * 4
+    q = kb // PANEL
+    per_system = kb * kb + kb * r + nb * kb * ls
+    if q > 1:
+        per_system += factor_scratch(kb) + PANEL * (kb + r)
+    chunk = max(1, min(B, SCRATCH_BYTES_MAX // (per_system * itemsize)))
+    if q == 1:
+        per_row = 3 if r <= APPLY_R else 5
+    else:
+        per_row = 3 + factor_launches(kb) + 4 * q - 2
+    return LaunchPlan(chunk, -(-B // chunk), ls, chunk * per_system,
+                      nb * (per_row + 1))
 
 
 def _check(W: torch.Tensor, R: torch.Tensor) -> None:
@@ -101,8 +112,9 @@ def band_solve_multi(W: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
     sides ``R`` [B, nb·kb, r] -> X [B, nb·kb, r], in the dtype of the
     inputs.
 
-    CPU tensors: the plain torch solver.  CUDA tensors: the CUDA kernel,
-    which adds one to ``band_solve_multi.launches`` per launch and records
+    CPU tensors: the plain torch solver.  CUDA tensors: the CUDA kernels,
+    whose wrapper adds one to ``band_solve_multi.launches`` per host loop
+    (:func:`launch_plan`'s ``calls`` a slice of ``MAX_R`` columns) and records
     ``(B, nb, kb, r)`` of the call in ``band_solve_multi.last_shape``.
     """
     _check(W, R)
@@ -130,7 +142,8 @@ band_solve_multi.last_shape = None
 
 
 def _launch(W: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
-    """One kernel launch for at most ``MAX_R`` right-hand sides."""
+    """One host loop a chunk of the batch, for at most ``MAX_R``
+    right-hand sides."""
     B, nb, kb, _ = W.shape
     r = R.shape[2]
     X = torch.empty_like(R)
@@ -140,20 +153,22 @@ def _launch(W: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
     from nodal_tpu_torch.utils.kernels import load_library
 
     lib = load_library()
-    sm_count = torch.cuda.get_device_properties(W.device).multi_processor_count
-    cfg = launch_config(B, nb, kb, r, W.element_size(), sm_count)
-    scratch = torch.empty(cfg.scratch_elems, dtype=W.dtype, device=W.device)
+    plan = launch_plan(B, nb, kb, r, W.element_size())
+    scratch = torch.empty(plan.scratch_elems, dtype=W.dtype, device=W.device)
     fn = lib.block_thomas_f32 if W.dtype == torch.float32 else \
         lib.block_thomas_f64
     with torch.cuda.device(W.device):
         stream = torch.cuda.current_stream(W.device).cuda_stream
-        err = fn(W.data_ptr(), R.data_ptr(), X.data_ptr(), scratch.data_ptr(),
-                 B, nb, kb, r, cfg.grid, cfg.smem_bytes, stream)
-    if err != 0:
-        raise RuntimeError(
-            f"block-Thomas kernel launch failed with CUDA error {err} "
-            f"(B={B}, nb={nb}, kb={kb}, r={r}, {W.dtype}, {cfg})")
-    band_solve_multi.launches += 1
+        for lo in range(0, B, plan.chunk):
+            hi = min(B, lo + plan.chunk)
+            err = fn(W[lo:hi].data_ptr(), R[lo:hi].data_ptr(),
+                     X[lo:hi].data_ptr(), scratch.data_ptr(), hi - lo, nb,
+                     kb, r, stream)
+            if err != 0:
+                raise RuntimeError(
+                    f"block-Thomas kernels failed with CUDA error {err} "
+                    f"(B={B}, nb={nb}, kb={kb}, r={r}, {W.dtype}, {plan})")
+            band_solve_multi.launches += 1
     return X
 
 

@@ -27,6 +27,31 @@ from nodal_tpu_torch.ops.block_lu import (_BLOCK, blocked_factor,
 BLOCK = _BLOCK
 
 
+def factor_scratch(n: int) -> int:
+    """Scratch values a system that the factorization needs for n_pad = n
+    (``factor_scratch`` in ``csrc/dense_tile.cuh``): P of a lone panel,
+    128·(n − 128), or of a pair of panels, 128·128 + 256·(n − 256)."""
+    if n <= 2 * BLOCK:
+        return BLOCK * (n - BLOCK)
+    return BLOCK * BLOCK + 2 * BLOCK * (n - 2 * BLOCK)
+
+
+def factor_launches(n: int) -> int:
+    """Kernel launches of one factorization at n_pad = n (the panel loop
+    of ``lu_factor`` in ``csrc/dense_tile.cuh``): an inverse a panel; a
+    pair of panels adds 6 products, a lone panel before the last adds 2."""
+    q, launches, t = n // BLOCK, 0, 0
+    while t < q:
+        launches += 1
+        if t + 1 == q:
+            break
+        if t + 2 == q:
+            launches, t = launches + 2, t + 1
+        else:
+            launches, t = launches + 7, t + 2
+    return launches
+
+
 def _check_matrix(G: torch.Tensor, fn: str) -> None:
     if G.dim() != 3 or G.shape[1] != G.shape[2]:
         raise ValueError(f"{fn} expects G [B, n_pad, n_pad], got "
@@ -80,7 +105,7 @@ def lu_factor(G: torch.Tensor):
     from nodal_tpu_torch.utils.kernels import load_library
 
     lib = load_library()
-    P = torch.empty(B * BLOCK * (n - BLOCK), dtype=G.dtype, device=G.device)
+    P = torch.empty(B * factor_scratch(n), dtype=G.dtype, device=G.device)
     fn = lib.block_lu_factor_f32 if G.dtype == torch.float32 else \
         lib.block_lu_factor_f64
     with torch.cuda.device(G.device):

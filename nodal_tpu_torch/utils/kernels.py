@@ -48,7 +48,7 @@ _SIGNATURES = {
        for name in ("pcr_solve_f32", "pcr_solve_f64")},
     **{name: ([_P] * 4 + [_I] * 7 + [_P], _I)
        for name in ("sband_solve_f32", "sband_solve_f64")},
-    **{name: ([_P] * 4 + [_I] * 6 + [_P], _I)
+    **{name: ([_P] * 4 + [_I] * 4 + [_P], _I)
        for name in ("block_thomas_f32", "block_thomas_f64")},
     **{name: ([_P] * 2 + [_I] * 2 + [_P], _I)
        for name in ("block_lu_factor_f32", "block_lu_factor_f64")},

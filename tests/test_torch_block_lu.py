@@ -42,6 +42,17 @@ from nodal_tpu_torch.utils.gridgen import grid_rows, ladder_rows  # noqa: E402
 B = 3
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for these small tensors: beside other test
+    processes the default pool oversubscribes the cores, and each tiny
+    parallel region then waits on the others."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _random_graph_rows(n, edges, seed, tie_every=1, extra=()):
     """Random unit resistors between node pairs, a ground tie on every
     ``tie_every``-th node: no band for RCM to find."""
@@ -230,6 +241,161 @@ def test_plain_solver_matches_pallas_multi_kernel():
     assert _rel(got.numpy(), want) < 5e-5
 
 
+# --- the CUDA kernels' order of operations, emulated on the CPU --------------
+#
+# block_lu.cu (through csrc/dense_tile.cuh) inverts each 128×128 diagonal
+# block by Gauss-Jordan in four 32-column panels (each 32×32 pivot block
+# element by element), sums every tile product apart from zero and adds it
+# to the value it updates last.  Summed onto the Schur complement step by
+# step instead, the f32 error grew to 20× the plain version's on sparsely
+# grounded networks; these emulations catch such a drift before a chip run.
+
+def _gauss_jordan(D):
+    """In-place Gauss-Jordan without pivoting, element by element (the
+    kernel's 32×32 pivot blocks)."""
+    a = D.clone()
+    for k in range(a.shape[-1]):
+        p = 1.0 / a[..., k, k]
+        col, row = a[..., :, k].clone(), a[..., k, :].clone()
+        a = a - (col * p[..., None])[..., :, None] * row[..., None, :]
+        a[..., k, :] = row * p[..., None]
+        a[..., :, k] = -col * p[..., None]
+        a[..., k, k] = p
+    return a
+
+
+def _panel_gauss_jordan(D, panel=32):
+    """The kernel's 128×128 inverse: Gauss-Jordan in 32-column panels, the
+    rank-32 updates summed apart."""
+    M = D.clone()
+    for p0 in range(0, M.shape[-1], panel):
+        P = slice(p0, p0 + panel)
+        Dp = _gauss_jordan(M[..., P, P])
+        rowp = Dp @ M[..., P, :]
+        rowp[..., :, P] = Dp
+        upd = M[..., :, P] @ rowp
+        new = M - upd
+        new[..., :, P] = -upd[..., :, P]
+        new[..., P, :] = rowp
+        M = new
+    return M
+
+
+def _emulated_factor(G, k=128):
+    """The packed factor block_lu.cu leaves in place of G: panels in pairs
+    (t, t + 1), whose updates of the rest are delayed into one product of
+    depth 256, a lone panel before the last alone."""
+    F = G.clone()
+    n = F.shape[-1]
+    d = 0
+    while d < n:
+        e = d + k
+        F[..., d:e, d:e] = _panel_gauss_jordan(F[..., d:e, d:e])
+        if e == n:
+            break
+        if e + k == n:
+            P = F[..., d:e, d:e] @ F[..., d:e, e:]
+            F[..., e:, e:] = F[..., e:, e:] + (-1.0) * (F[..., e:, d:e] @ P)
+            d = e
+            continue
+        f = e + k
+        Pa = F[..., d:e, d:e] @ F[..., d:e, e:f]
+        Pb = F[..., d:e, d:e] @ F[..., d:e, f:]
+        F[..., e:, e:f] = F[..., e:, e:f] + (-1.0) * (F[..., e:, d:e] @ Pa)
+        F[..., e:f, f:] = F[..., e:f, f:] + (-1.0) * (F[..., e:f, d:e] @ Pb)
+        F[..., e:f, e:f] = _panel_gauss_jordan(F[..., e:f, e:f])
+        Pc = F[..., e:f, e:f] @ F[..., e:f, f:]
+        F[..., f:, f:] = F[..., f:, f:] + (-1.0) * (
+            F[..., f:, d:f] @ torch.cat([Pb, Pc], dim=-2))
+        d = f
+    return F
+
+
+def _emulated_solve(F, R, block=128):
+    """block_lu.cu's two sweeps with the packed factor."""
+    X = R.clone()
+    n = F.shape[-1]
+    for d in range(0, n - block, block):
+        e = d + block
+        z = F[..., d:e, d:e] @ X[..., d:e, :]
+        X[..., e:, :] = X[..., e:, :] + (-1.0) * (F[..., e:, d:e] @ z)
+    for d in range(n - block, -1, -block):
+        e = d + block
+        z = X[..., d:e, :] + (-1.0) * (F[..., d:e, e:] @ X[..., e:, :])
+        X[..., d:e, :] = F[..., d:e, d:e] @ z
+    return X
+
+
+def _laplacian_system(n, edges, tie_every, batch, seed):
+    """A grounded random-graph Laplacian assembled dense and padded to 128,
+    f64, with its right-hand side."""
+    jc, st = _stamps(_random_graph_rows(n, edges, seed, tie_every))
+    G, b = assemble_dense(st, torch.as_tensor(_params(jc, batch, seed)),
+                          dtype=torch.float64, pad_to=-(-st.n // 128) * 128)
+    return G.numpy(), b.numpy()[..., None]
+
+
+#: Systems held against the JAX package: the chip smoke's class (a tie on
+#: every 50th node, κ ≈ 1e3) at 5 panels and at one, and the diagonally
+#: dominant class at 3 panels with 3 right-hand sides.
+EMULATION_CASES = {
+    "laplacian_n600": lambda: _laplacian_system(600, 2400, 50, 2, 0),
+    "laplacian_n100": lambda: _laplacian_system(100, 400, 50, 2, 1),
+    "dominant_n384_r3": lambda: _dominant(384, 2, 3, seed=11),
+}
+
+
+@pytest.mark.parametrize("n", [128, 256, 384, 512, 1024])
+def test_factor_plan(n):
+    """The factorization's scratch and launches (ops/lu.py mirrors the
+    panel loop of csrc/dense_tile.cuh): a pair of panels needs 128·128 +
+    256·(n − 256) values and 8 launches, a lone panel 128·(n − 128) and
+    3, the last panel's inverse 1."""
+    q = n // 128
+    pairs = (q - 1) // 2
+    lone = (q - 1) % 2
+    assert lu.factor_launches(n) == 8 * pairs + 3 * lone + 1
+    want = 128 * (n - 128) if n <= 256 else 128 * 128 + 256 * (n - 256)
+    assert lu.factor_scratch(n) == want
+
+
+@pytest.mark.parametrize("case", list(EMULATION_CASES))
+def test_emulated_kernel_order_matches_reference(case):
+    """The kernels' order of operations in f32 stays near the f64 truth:
+    within 8× the JAX package's own f32 blocked solve's error, or 1e-6
+    where both are at the f32 rounding floor.  The two differ in the
+    diagonal inverses (no-pivot Gauss-Jordan against LAPACK's pivoted
+    inverse, 1.4–5.5× on these systems; element-by-element Gauss-Jordan
+    over the whole block, the earlier kernel's, is 2.2–11×) and in the
+    order of each product's sums; summing onto the Schur complement once
+    cost 20×.
+    In f64 the emulation agrees with the JAX package to 1e-10 (κ·ε₆₄ with
+    growth)."""
+    A, R = EMULATION_CASES[case]()
+    truth = np.linalg.solve(A, R)
+    A32 = torch.as_tensor(A, dtype=torch.float32)
+    got = _emulated_solve(_emulated_factor(A32),
+                          torch.as_tensor(R, dtype=torch.float32)).numpy()
+    want = np.asarray(jblu.blocked_solve_factored(
+        jblu.blocked_factor(jnp.asarray(A, jnp.float32)),
+        jnp.asarray(R, jnp.float32)))
+    assert _rel(got, truth) <= max(8 * _rel(want, truth), 1e-6)
+    got64 = _emulated_solve(_emulated_factor(torch.as_tensor(A)),
+                            torch.as_tensor(R)).numpy()
+    with jax.enable_x64(True):
+        want64 = np.asarray(jblu.blocked_solve_factored(
+            jblu.blocked_factor(jnp.asarray(A)), jnp.asarray(R)))
+    assert _rel(got64, want64) <= 1e-10 and _rel(got64, truth) <= 1e-10
+
+
+def test_emulated_inverse_is_the_inverse():
+    """The panel Gauss-Jordan inverse of a 128×128 block, f64, against
+    numpy's: the same matrix, rounded apart (1e-12 on κ of a few)."""
+    A, _ = _dominant(128, 3, 1, seed=5)
+    got = _panel_gauss_jordan(torch.as_tensor(A)).numpy()
+    assert _rel(got, np.linalg.inv(A)) <= 1e-12
+
+
 # --- the CUDA kernel's wrapper, CPU side ------------------------------------
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -283,7 +449,8 @@ def test_wrapper_rejects_bad_input(bad):
 
 
 def test_kernel_is_built_with_the_library():
-    assert "block_lu.cu" in [p.name for p in kernels._sources()]
+    names = [p.name for p in kernels._sources()]
+    assert "block_lu.cu" in names and "dense_tile.cuh" in names
     for name, n_args in (("block_lu_factor_f32", 5),
                          ("block_lu_factor_f64", 5),
                          ("block_lu_solve_f32", 7),
@@ -294,7 +461,15 @@ def test_kernel_is_built_with_the_library():
     for name in ("block_lu_factor_f32", "block_lu_factor_f64",
                  "block_lu_solve_f32", "block_lu_solve_f64"):
         assert f"int {name}(" in src
-    assert f"kBlock = {lu.BLOCK}" in src and lu.BLOCK == 128
+    # The shared tile core, under this source's own kernel names.
+    assert '#include "dense_tile.cuh"' in src
+    assert "DENSE_TILE_KERNELS(block_lu)" in src
+    core = (kernels.CSRC_DIR / "dense_tile.cuh").read_text()
+    assert f"kBlock = {lu.BLOCK}" in core and lu.BLOCK == 128
+    # f64 products on the FP64 tensor cores; f32 in full f32 (no TF32).
+    assert "mma.sync.aligned.m16n8k4.row.col.f64" in core
+    assert "tf32" not in core.lower().replace("no tf32", "")
+    assert "cp.async" in core
 
 
 def test_loader_compiles_sources_and_hashes_headers(tmp_path, monkeypatch):
