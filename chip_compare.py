@@ -1,6 +1,7 @@
-"""Two checkouts' blocked-LU and block-Thomas kernels, in turns on one GPU.
+"""Two checkouts' kernels, in turns on one GPU.
 
-    python3 chip_compare.py ROOT [ROOT ...]
+    python3 chip_compare.py [--mma] ROOT [ROOT ...]
+    python3 chip_compare.py --sband ROOT [ROOT ...]
 
 Each ROOT is a directory that holds a ``nodal_tpu_torch`` package: this
 checkout (``.``) or another commit unpacked beside it, for instance
@@ -9,7 +10,8 @@ checkout (``.``) or another commit unpacked beside it, for instance
     python3 chip_compare.py _checkout . . _checkout
 
 Each ROOT runs in a process of its own, in the order given, and builds its
-own kernels.  It measures, with this checkout's ``chip_smoke.py`` helpers:
+own kernels.  It measures, with this checkout's ``chip_smoke.py`` helpers,
+by default the blocked-LU and block-Thomas kernels:
 
 * the blocked LU at ``chip_smoke.LU_TIME_SHAPES`` and the block Thomas at
   ``chip_smoke.BAND_TIME_SHAPES``, f32 and f64: kernel against plain
@@ -20,6 +22,15 @@ own kernels.  It measures, with this checkout's ``chip_smoke.py`` helpers:
   (``phase_band_accuracy``);
 * ``BatchedSolver(refine="auto")`` solves/s (CUDA events, median of 5) of
   the paths that run these kernels, with the kernels' launches in a call.
+
+With ``--sband``, the scalar-band kernel instead: its registers, stack and
+spills (``cuobjdump``); its difference from the plain solver at every
+``chip_smoke.SBAND_SHAPES`` shape, f32 and f64, reported beside
+``SBAND_RTOL`` and not asserted (a ROOT may be a variant whose answers are
+wrong on purpose); its device ms against the plain solver's and its bound
+at ``chip_smoke.SBAND_TIME_SHAPES`` (``time_sband``), with the launch
+configuration and the SM clock; and, where every check passed, the
+``auto`` solves/s of the mesh, midsize and branch paths (``SBAND_PATHS``).
 
 Prints the card's name and power limit, then one JSON line a measurement
 tagged with its ROOT; with ``--mma`` first the FP64 ``mma.sync`` shapes'
@@ -57,6 +68,15 @@ AUTO_PATHS = [
      "band"),
     ("widebranch", lambda cs: cs.grid_circuit_rows(64, 64, branch=True),
      "GENERAL_BATCH", "band"),
+]
+
+# The scalar-band kernel's main paths, as ``AUTO_PATHS``.
+SBAND_PATHS = [
+    ("mesh", lambda cs: cs.mesh_rows(cs.MESH_NODES), "BATCH", "sband"),
+    *((f"midsize{n}", lambda cs, n=n: cs.mesh_rows(n), "MIDSIZE_BATCH",
+       "sband") for n in (5000, 10000)),
+    ("branch", lambda cs: cs.mesh_rows(cs.MESH_NODES, branch=True), "BATCH",
+     "sband"),
 ]
 
 MMA_SRC = r"""
@@ -143,12 +163,12 @@ def mma_rates() -> None:
                   "tflops": flops / start.elapsed_time(end) / 1e9})
 
 
-def measure(root: Path) -> None:
+def load_root(root: Path):
+    """This checkout's chip_smoke helpers and ROOT's package, with its
+    kernels built; returns (helpers, tag)."""
     sys.path.insert(0, str(root))
     cs = smoke_helpers()
     import nodal_tpu_torch
-    from nodal_tpu_torch import BatchedSolver, Circuit, Netlist
-    from nodal_tpu_torch.ops import band, block_lu, block_thomas, lu
     from nodal_tpu_torch.utils import kernels
 
     pkg = Path(nodal_tpu_torch.__file__).resolve().parent
@@ -158,6 +178,84 @@ def measure(root: Path) -> None:
     t0 = time.perf_counter()
     kernels.load_library()
     emit({**tag, "phase": "build", "seconds": time.perf_counter() - t0})
+    return cs, tag
+
+
+def auto_rates(cs, tag, paths, wrappers) -> None:
+    """``BatchedSolver(refine="auto")`` solves/s of each path, with the
+    launches of its kind's wrappers in one call."""
+    from nodal_tpu_torch import BatchedSolver, Circuit, Netlist
+
+    for label, rows, batch, kind in paths:
+        B = getattr(cs, batch)
+        circuit = Circuit(Netlist.from_rows(rows(cs)))
+        solver = BatchedSolver(circuit, dtype=torch.float32, refine="auto",
+                               device="cuda")
+        params = torch.as_tensor(cs.sweep_params(circuit, B), device="cuda")
+        for w in wrappers[kind]:
+            w.launches = 0
+        solver(params)
+        torch.cuda.synchronize()
+        launches = sum(w.launches for w in wrappers[kind])
+        times, ms = cs.median_call_ms(solver, params)
+        emit({**tag, "phase": "auto_rate", "path": label, "B": B,
+              "method": solver.method, "launches": launches,
+              "ms_reps": times, "median_ms": ms,
+              "solves_per_s": B / (ms / 1e3)})
+        del solver, params
+        torch.cuda.empty_cache()
+
+
+def busy_sm_clock_mhz(fn, calls: int = 40) -> float:
+    """The SM clock (MHz) that ``nvidia-smi`` reads while ``calls`` queued
+    ``fn()`` calls keep the card busy."""
+    for _ in range(calls):
+        fn()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    torch.cuda.synchronize()
+    return float(smi.stdout.split()[0])
+
+
+def measure_sband(root: Path) -> None:
+    cs, tag = load_root(root)
+    from nodal_tpu_torch.ops import sband, scalar_band
+    from nodal_tpu_torch.utils import kernels
+
+    cs.emit = lambda obj: emit({**tag, **obj})
+    cs.phase_resources(kernels.library_path(), only="sband")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    right = True
+    for dtype in (torch.float32, torch.float64):
+        for shape in cs.SBAND_SHAPES:
+            err = cs.check_sband(sband, scalar_band, shape, dtype, gen)
+            right &= err <= cs.SBAND_RTOL[dtype]
+            emit({**tag, "phase": "kernel_check", "kernel": "sband_solve",
+                  "shape": shape, "dtype": str(dtype), "max_rel_diff": err,
+                  "tol": cs.SBAND_RTOL[dtype],
+                  "within_tol": err <= cs.SBAND_RTOL[dtype]})
+    for B, n, w, n_rhs in cs.SBAND_TIME_SHAPES:
+        for dtype in (torch.float32, torch.float64):
+            U, R = cs.random_sband(B, n, w, n_rhs, dtype, gen)
+            t = cs.time_sband(sband, scalar_band, U, R)
+            cfg = sband.launch_config(B, n, w + 1, n_rhs, U.element_size())
+            mhz = busy_sm_clock_mhz(lambda: sband.sband_solve_multi(U, R))
+            us = min(t["kernel_ms"]) * 1e3 / n
+            emit({**tag, "phase": "kernel_time", "kernel": "sband_solve",
+                  "B": B, "n": n, "w": w, "n_rhs": n_rhs,
+                  "dtype": str(dtype), **t, "us_a_row": us, "sm_mhz": mhz,
+                  "clocks_a_row": us * mhz, "launch": repr(cfg)})
+            del U, R
+            torch.cuda.empty_cache()
+    if right:  # a variant with wrong answers can make a path's algebra fail
+        auto_rates(cs, tag, SBAND_PATHS,
+                   {"sband": (sband.sband_solve_multi,)})
+
+
+def measure(root: Path) -> None:
+    cs, tag = load_root(root)
+    from nodal_tpu_torch.ops import band, block_lu, block_thomas, lu
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     for B, n, r in cs.LU_TIME_SHAPES:
@@ -189,26 +287,9 @@ def measure(root: Path) -> None:
     cs.phase_band_accuracy("widemesh", cs.grid_circuit_rows(100, 100),
                            cs.MIDSIZE_BATCH)
 
-    wrappers = {"lu": (lu.lu_factor, lu.lu_solve_factored),
-                "band": (block_thomas.band_solve_multi,)}
-    for label, rows, batch, kind in AUTO_PATHS:
-        B = getattr(cs, batch)
-        circuit = Circuit(Netlist.from_rows(rows(cs)))
-        solver = BatchedSolver(circuit, dtype=torch.float32, refine="auto",
-                               device="cuda")
-        params = torch.as_tensor(cs.sweep_params(circuit, B), device="cuda")
-        for w in wrappers[kind]:
-            w.launches = 0
-        solver(params)
-        torch.cuda.synchronize()
-        launches = sum(w.launches for w in wrappers[kind])
-        times, ms = cs.median_call_ms(solver, params)
-        emit({**tag, "phase": "auto_rate", "path": label, "B": B,
-              "method": solver.method, "launches": launches,
-              "ms_reps": times, "median_ms": ms,
-              "solves_per_s": B / (ms / 1e3)})
-        del solver, params
-        torch.cuda.empty_cache()
+    auto_rates(cs, tag, AUTO_PATHS,
+               {"lu": (lu.lu_factor, lu.lu_solve_factored),
+                "band": (block_thomas.band_solve_multi,)})
 
 
 def main() -> None:
@@ -216,15 +297,18 @@ def main() -> None:
         sys.exit("chip_compare: CUDA is not available")
     args = sys.argv[1:]
     if args[:1] == ["--measure"]:
-        measure(Path(args[1]))
+        (measure_sband if args[1] == "sband" else measure)(Path(args[2]))
         return
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     emit(smi.stdout.strip())
+    mode = "kernels"
     if args[:1] == ["--mma"]:
         mma_rates()
         args = args[1:]
+    elif args[:1] == ["--sband"]:
+        mode, args = "sband", args[1:]
     if not args:
         sys.exit("chip_compare: name at least one ROOT")
     for root in args:
@@ -232,7 +316,7 @@ def main() -> None:
             sys.exit(f"chip_compare: {root} holds no nodal_tpu_torch")
     for root in args:
         proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                               "--measure", root])
+                               "--measure", mode, root])
         if proc.returncode:
             sys.exit(f"chip_compare: {root} failed ({proc.returncode})")
     emit(smi.stdout.strip())

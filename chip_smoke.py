@@ -97,8 +97,9 @@ SBAND_RTOL = {torch.float32: 1e-4, torch.float64: 1e-10}
 # (B, n, w, n_rhs): each w in {1, 8, 26, 56}, each n in {1, 8, 999, 5000,
 # 16384}, n_rhs in {1, 3, the widest with W1 + n_rhs = 128}; B in
 # {1, 7, 256} (B <= 7 at n = 16384), and the mesh and branch batches.  The
-# last three sit at the edge between the kernel's register variant
-# (W1 + n_rhs <= 32) and its shared-memory variant.
+# next three sit at the edge between the kernel's register variant
+# (W1 + n_rhs <= 32) and its shared-memory variant; the last is a band
+# without couplings (w = 0).
 SBAND_SHAPES = [
     (1, 1, 1, 1), (7, 1, 56, 3), (256, 8, 8, 1), (7, 8, 1, 126),
     (256, 999, 26, 1), (256, 999, 26, 3), (7, 999, 56, 71),
@@ -106,6 +107,7 @@ SBAND_SHAPES = [
     (256, 5000, 26, 1), (7, 5000, 8, 3), (1, 5000, 1, 1),
     (256, 5000, 56, 3), (7, 16384, 26, 3), (1, 16384, 56, 71),
     (7, 16384, 1, 126), (7, 999, 30, 1), (7, 999, 31, 1), (7, 999, 3, 28),
+    (7, 999, 0, 3),
 ]
 SBAND_TIME_SHAPES = [(BATCH, 999, 26, 1), (MIDSIZE_BATCH, 4999, 26, 1)]
 
@@ -382,6 +384,46 @@ def random_sband(B: int, n: int, w: int, n_rhs: int, dtype, gen):
     return U.to(dtype).contiguous(), R.to(dtype).contiguous()
 
 
+def check_sband(sband, scalar_band, shape, dtype, gen) -> float:
+    """The scalar-band kernel against the plain torch solver on the same
+    CUDA tensors at one ``SBAND_SHAPES`` shape: the largest relative
+    difference of a system, infinite if an answer is not finite (asserts
+    the dtype and shape)."""
+    B, n, w, n_rhs = shape
+    U, R = random_sband(B, n, w, n_rhs, dtype, gen)
+    got = sband.sband_solve_multi(U, R)
+    torch.cuda.synchronize()
+    want = scalar_band.scalar_band_solve_scan(U, R)
+    check(got.dtype == dtype and got.shape == R.shape,
+          f"sband_solve_multi returned {got.dtype} {tuple(got.shape)}")
+    if not bool(torch.isfinite(got).all()):
+        return math.inf
+    return rel_diff(got.reshape(B, -1), want.reshape(B, -1))
+
+
+def time_sband(sband, scalar_band, U, R) -> dict:
+    """The scalar-band kernel against its plain version on ``U``, ``R``:
+    device ms in turns (plain, kernel, kernel, plain; the plain solver
+    steps through the rows in Python, so it gets few reps), the largest
+    difference, and the bound."""
+    got = sband.sband_solve_multi(U, R)
+    want = scalar_band.scalar_band_solve_scan(U, R)
+    max_abs = float((got - want).abs().max())
+    del got, want
+    p1 = cuda_ms(lambda: scalar_band.scalar_band_solve_scan(U, R),
+                 reps=2, warmup=1)
+    k1 = cuda_ms(lambda: sband.sband_solve_multi(U, R))
+    k2 = cuda_ms(lambda: sband.sband_solve_multi(U, R))
+    p2 = cuda_ms(lambda: scalar_band.scalar_band_solve_scan(U, R),
+                 reps=2, warmup=1)
+    B, n, W1 = U.shape
+    n_rhs = R.shape[2]
+    bound = bound_ms(2.0 * n * (W1 * W1 + 2 * W1 * n_rhs) * B,
+                     n * (W1 + 2 * n_rhs) * B * U.element_size(), U.dtype)
+    return {"kernel_ms": [k1, k2], "plain_ms": [p1, p2],
+            "max_abs_err": max_abs, **bound}
+
+
 def phase_sband_kernel(sband, scalar_band):
     """Scalar-band kernel vs the plain torch solver on the same CUDA
     tensors, then both timed at the mesh and midsize shapes."""
@@ -389,16 +431,8 @@ def phase_sband_kernel(sband, scalar_band):
     worst = {}
     for dtype in (torch.float32, torch.float64):
         for B, n, w, n_rhs in SBAND_SHAPES:
-            U, R = random_sband(B, n, w, n_rhs, dtype, gen)
-            got = sband.sband_solve_multi(U, R)
-            torch.cuda.synchronize()
-            want = scalar_band.scalar_band_solve_scan(U, R)
-            check(got.dtype == dtype and got.shape == R.shape,
-                  f"sband_solve_multi returned {got.dtype} "
-                  f"{tuple(got.shape)}")
-            check(bool(torch.isfinite(got).all()),
-                  f"sband_solve_multi non-finite at {(B, n, w, n_rhs)}")
-            err = rel_diff(got.reshape(B, -1), want.reshape(B, -1))
+            err = check_sband(sband, scalar_band, (B, n, w, n_rhs), dtype,
+                              gen)
             emit({"phase": "kernel_check", "kernel": "sband_solve", "B": B,
                   "n": n, "w": w, "n_rhs": n_rhs, "dtype": str(dtype),
                   "max_rel_diff": err, "tol": SBAND_RTOL[dtype]})
@@ -406,37 +440,20 @@ def phase_sband_kernel(sband, scalar_band):
                   f"sband_solve_multi differs from the plain solver by "
                   f"{err:.3e} at {(B, n, w, n_rhs)} {dtype}")
             worst[dtype] = max(worst.get(dtype, 0.0), err)
-            del U, R, got, want
 
     timing = {}
     for B, n, w, n_rhs in SBAND_TIME_SHAPES:
         for dtype in (torch.float32, torch.float64):
             U, R = random_sband(B, n, w, n_rhs, dtype, gen)
-            got = sband.sband_solve_multi(U, R)
-            want = scalar_band.scalar_band_solve_scan(U, R)
-            max_abs = float((got - want).abs().max())
-            # Alternate plain, kernel, kernel, plain; the plain solver
-            # steps through the rows in Python, so it gets few reps.
-            p1 = cuda_ms(lambda: scalar_band.scalar_band_solve_scan(U, R),
-                         reps=2, warmup=1)
-            k1 = cuda_ms(lambda: sband.sband_solve_multi(U, R))
-            k2 = cuda_ms(lambda: sband.sband_solve_multi(U, R))
-            p2 = cuda_ms(lambda: scalar_band.scalar_band_solve_scan(U, R),
-                         reps=2, warmup=1)
+            t = time_sband(sband, scalar_band, U, R)
             lib = library_ms(lambda c: dense_from_sband(U[:c]),
                              lambda c: R[:c], B, n, dtype)
-            W1 = w + 1
-            bound = bound_ms(2.0 * n * (W1 * W1 + 2 * W1 * n_rhs) * B,
-                             n * (W1 + 2 * n_rhs) * B * U.element_size(),
-                             dtype)
-            timing[(B, n, dtype)] = {"ms": min(k1, k2),
-                                     "plain_ms": min(p1, p2),
-                                     "max_abs_err": max_abs, **lib, **bound}
+            timing[(B, n, dtype)] = {**t, **lib, "ms": min(t["kernel_ms"]),
+                                     "plain_ms": min(t["plain_ms"])}
             emit({"phase": "kernel_time", "kernel": "sband_solve", "B": B,
                   "n": n, "w": w, "n_rhs": n_rhs, "dtype": str(dtype),
-                  "kernel_ms": [k1, k2], "plain_ms": [p1, p2],
-                  "max_abs_err": max_abs, **lib, **bound})
-            del U, R, got, want
+                  **t, **lib})
+            del U, R
     return worst, timing
 
 
@@ -1102,10 +1119,11 @@ def phase_profile(label, rows, batch):
           "device_idle_share": max(0.0, 1.0 - busy / window)})
 
 
-def phase_resources(library: Path):
+def phase_resources(library: Path, only: str = ""):
     """Registers, stack and local (spill) bytes a thread and static shared
-    bytes of every kernel in the built library, as ``cuobjdump -res-usage``
-    reads them.  A diagnostic: without the tool it says "not measured"."""
+    bytes of every kernel in the built library (whose mangled name holds
+    ``only``), as ``cuobjdump -res-usage`` reads them.  A diagnostic:
+    without the tool it says "not measured"."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     try:
         proc = subprocess.run([tool, "-res-usage", str(library)],
@@ -1116,7 +1134,7 @@ def phase_resources(library: Path):
     usage, name = {}, None
     for line in proc.stdout.splitlines():
         line = line.strip()
-        if line.startswith("Function "):
+        if line.startswith("Function ") and only in line:
             name = line[len("Function "):].rstrip(":")
         elif name and line.startswith("REG:"):
             usage[name] = {k: v for k, v in (kv.split(":", 1) for kv in
@@ -2036,6 +2054,8 @@ def main() -> None:
     phase_band_accuracy("lattice", lattice_rows(20, 10, 10), GENERAL_BATCH)
     phase_band_accuracy("widemesh", grid_circuit_rows(100, 100),
                         MIDSIZE_BATCH)
+    phase_profile("mesh", mesh_rows(MESH_NODES), BATCH)
+    phase_profile("midsize5000", mesh_rows(MIDSIZE_NODES[0]), MIDSIZE_BATCH)
     phase_profile("lattice", lattice_rows(20, 10, 10), GENERAL_BATCH)
     phase_profile("randnet", randnet_rows(), GENERAL_BATCH)
     clock("sweep accuracy and profiles")

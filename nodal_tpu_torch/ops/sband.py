@@ -34,6 +34,10 @@ SCRATCH_BYTES_MAX = 1 << 30
 #: Warps per block; must match ``kMaxWarps`` in ``csrc/sband.cu``.
 MAX_WARPS = 8
 
+#: Rows the register variant stages ahead of use in shared memory, in both
+#: sweeps; must match ``kStages`` in ``csrc/sband.cu``.
+STAGES = 8
+
 
 def sband_fits(W1: int, n_rhs: int = 1) -> bool:
     """Whether the kernel takes a band of W1 slots with n_rhs right-hand
@@ -62,23 +66,24 @@ def launch_config(B: int, n: int, W1: int, n_rhs: int,
     Each warp solves one system at a time and writes its factored rows,
     n·W1a values (W1a = W1 + n_rhs), to its own scratch area.  Rows of up
     to ``REGISTER_W1A`` slots keep the elimination window in registers and
-    need shared memory only for the pivot's multipliers and band slots (96
-    values) and the backward sweep's ring of n_rhs·W1 values (rounded up
-    to 16 bytes); wider rows keep a ring of W1 rows plus one buffer row,
-    (W1 + 1)·W1a values.  Blocks take as many warps (up to ``MAX_WARPS``)
-    as their shared memory allows; the grid has at most one warp per
-    system and at most ``SCRATCH_BYTES_MAX`` of scratch.
+    need shared memory for the pivot's multipliers and band slots (96
+    values) and a ring of W1 + ``STAGES`` rows of 32 values, through which
+    both sweeps stage their rows ``STAGES`` rows ahead; wider rows keep a
+    ring of W1 rows plus one buffer row, (W1 + 1)·W1a values.  Blocks take
+    as many warps (up to ``MAX_WARPS``, 4 for the f64 register variant) as
+    their shared memory allows; the grid has at most one warp per system
+    and at most ``SCRATCH_BYTES_MAX`` of scratch.
     """
     W1a = W1 + n_rhs
     max_warps = MAX_WARPS
     if W1a <= REGISTER_W1A:
         # csrc/sband.cu:reg_smem_per_warp
-        ring = -(-n_rhs * W1 // 4) * 4
-        variant, per_warp = "registers", (32 + 64 + ring) * itemsize
+        variant = "registers"
+        per_warp = (32 + 64 + (W1 + STAGES) * 32) * itemsize
         if itemsize == 8:
-            # The f64 register kernels take ~150 registers a thread (ptxas,
-            # sm_90a): blocks of 4 warps let 3 share an SM, where one block
-            # of 8 would leave it at 8 warps.
+            # The f64 register kernels are built for blocks of at most 4
+            # warps, three to an SM, at up to 170 registers a thread (the
+            # launch bounds of csrc/sband.cu:sband_reg_kernel).
             max_warps = MAX_WARPS // 2
     else:
         variant, per_warp = "shared", (W1 + 1) * W1a * itemsize

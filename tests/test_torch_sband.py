@@ -1,14 +1,17 @@
 """The port's scalar-band tier against the JAX package: the plan, batched
 assembly, the band matvec, the plain solver (also against the Pallas
-kernels in interpret mode), the CPU side of the CUDA kernel's wrapper, and
+kernels in interpret mode), the CUDA kernel's order of operations
+emulated in torch, the CPU side of the kernel's wrapper, and
 ``BatchedSolver(method="sband")`` end to end.
 
-Tolerances: plan arrays and f64 assembly exact; the f64 matvec and solver
-1e-12 relative (the same recurrence, summed in another order); the plain
-solver against the Pallas kernels 1e-5 (VMEM kernel) and 1e-4 (streaming
-kernel) relative, the bounds of the JAX package's own tests of those
-kernels in f32; the raw f32 tier 1e-5 from the JAX package, the f64
-tiers 1e-9 from it and 1e-6 (the contract) from numpy f64 dense solves.
+Tolerances: plan arrays and f64 assembly exact; the f64 matvec, solver and
+kernel emulation 1e-12 relative (the same recurrence, summed in another
+order); the f32 emulation ``chip_smoke.SBAND_RTOL``, the card's bound on
+the kernel; the plain solver against the Pallas kernels 1e-5 (VMEM
+kernel) and 1e-4 (streaming kernel) relative, the bounds of the JAX
+package's own tests of those kernels in f32; the raw f32 tier 1e-5 from
+the JAX package, the f64 tiers 1e-9 from it and 1e-6 (the contract) from
+numpy f64 dense solves.
 """
 
 import numpy as np
@@ -25,6 +28,7 @@ from nodal_tpu import batch as jbatch  # noqa: E402
 from nodal_tpu.ops import pallas_scalar_band as jpsb  # noqa: E402
 from nodal_tpu.ops import scalar_band as jsb  # noqa: E402
 from nodal_tpu.ops.assemble import assemble_dense as jassemble_dense  # noqa: E402
+from chip_smoke import SBAND_RTOL  # noqa: E402  (the bound the card checks)
 from nodal_tpu_torch import BatchedSolver  # noqa: E402
 from nodal_tpu_torch.models.stamps import stamps_from_reference  # noqa: E402
 from nodal_tpu_torch.ops import sband  # noqa: E402
@@ -242,6 +246,103 @@ def test_wrapper_rejects_bad_input(bad):
         sband.sband_solve_multi(U, R)
 
 
+def _kernel_order_solve(U, R):
+    """The register variant of ``csrc/sband.cu`` in its order of
+    operations, in torch: the forward stores each factored row as
+    (1/d, m_r = A[i][i+r]·(1/d), q = b'·(1/d)), so that neither sweep
+    divides a row; the column-form backward keeps the pending value of
+    rows i..i-w (lane r holds row i - r), takes x_i from row i's, subtracts
+    m_{i-r,r}·x_i from each row i - r, shifts the rows down one lane and
+    starts row i-1-w at its q."""
+    B, n, W1 = U.shape
+    n_rhs = R.shape[2]
+    w = W1 - 1
+    W1a = W1 + n_rhs
+    # Rows past n read as 0 (the kernel's zero-filled window rows).
+    A = torch.cat([torch.cat([U, R], -1), U.new_zeros(B, w, W1a)], 1)
+    F = U.new_empty(B, n, W1a)
+    for i in range(n):
+        p = A[:, i, :].clone()
+        inv = 1.0 / p[:, :1]
+        F[:, i, 0] = inv[:, 0]
+        F[:, i, 1:] = p[:, 1:] * inv
+        for r in range(1, w + 1):
+            m = p[:, r:r + 1] * inv
+            A[:, i + r, :W1 - r] -= m * p[:, r:W1]
+            A[:, i + r, W1:] -= m * p[:, W1:]
+    X = U.new_empty(B, n, n_rhs)
+    pend = U.new_zeros(B, w + 1, n_rhs)
+    for r in range(min(w + 1, n)):
+        pend[:, r] = F[:, n - 1 - r, W1:]
+    lanes = torch.arange(1, w + 1)
+    for i in range(n - 1, -1, -1):
+        x = pend[:, 0].clone()
+        X[:, i] = x
+        rows = i - lanes
+        diag = F[:, rows.clamp(min=0), lanes] * (rows >= 0)
+        pend[:, 1:] -= diag[..., None] * x[:, None, :]
+        pend = torch.cat([pend[:, 1:], F[:, i - 1 - w, None, W1:] if
+                          i - 1 - w >= 0 else U.new_zeros(B, 1, n_rhs)], 1)
+    return X
+
+
+def _random_sband_np(B, n, w, n_rhs, seed):
+    """numpy twin of ``chip_smoke.random_sband``: diagonally dominant
+    symmetric bands (couplings past the last row zero) and right-hand
+    sides, f64."""
+    rng = np.random.default_rng(seed)
+    W1 = w + 1
+    U = -(0.1 + 0.9 * rng.random((B, n, W1)))
+    U *= (np.arange(n)[:, None] + np.arange(W1)) < n
+    diag = np.abs(U[:, :, 1:]).sum(-1)
+    for k in range(1, min(W1, n)):
+        diag[:, k:] += np.abs(U[:, :-k, k])
+    U[:, :, 0] = diag + 0.1 + 0.9 * rng.random((B, n))
+    return U, rng.standard_normal((B, n, n_rhs))
+
+
+@pytest.mark.parametrize("B,n,w,n_rhs", [
+    (3, 60, 26, 1), (2, 50, 26, 3), (2, 40, 3, 28), (4, 7, 8, 3),
+    (2, 1, 1, 1), (2, 45, 30, 1), (3, 33, 1, 5), (2, 20, 0, 2)])
+def test_kernel_order_matches_plain_solver(B, n, w, n_rhs):
+    """The kernel's order of operations (stored 1/d, column-form back
+    substitution) against the plain solver: 1e-12 in f64 (the same
+    recurrence summed in another order), chip_smoke's SBAND_RTOL in f32,
+    the bound the card holds the kernel to."""
+    U, R = _random_sband_np(B, n, w, n_rhs, seed=n + w + n_rhs)
+    for dtype, tol in ((torch.float64, 1e-12),
+                       (torch.float32, SBAND_RTOL[torch.float32])):
+        Ut = torch.as_tensor(U, dtype=dtype)
+        Rt = torch.as_tensor(R, dtype=dtype)
+        got = _kernel_order_solve(Ut, Rt)
+        want = tsb.scalar_band_solve_scan(Ut, Rt)
+        assert got.dtype == dtype and got.shape == Rt.shape
+        for s in range(B):
+            assert _rel(got[s].numpy(), want[s].numpy()) <= tol
+
+
+@pytest.mark.parametrize("case,n_rhs", [("mesh7x30", 1),
+                                        ("branch_node_block", 3)])
+def test_kernel_order_matches_reference_scan(case, n_rhs):
+    """The kernel's order of operations against the JAX package's scan on
+    an assembled mesh band and the branch circuit's node block with three
+    right-hand sides, f64."""
+    U, b = _assembled(case)
+    rng = np.random.default_rng(11)
+    R = torch.cat([b[..., None], torch.as_tensor(
+        rng.standard_normal(b.shape + (n_rhs - 1,)))], -1)
+    want = np.asarray(jsb.scalar_band_solve_scan(jnp.asarray(U.numpy()),
+                                                 jnp.asarray(R.numpy())))
+    got = _kernel_order_solve(U, R)
+    assert _rel(got.numpy(), want) <= 1e-12
+
+
+def test_stages_match_the_kernel_source():
+    src = (kernels.CSRC_DIR / "sband.cu").read_text()
+    assert f"constexpr int kStages = {sband.STAGES};\n" in src
+    assert sband.STAGES & (sband.STAGES - 1) == 0
+
+
 @pytest.mark.parametrize("itemsize", [4, 8])
 @pytest.mark.parametrize("B,n,W1,n_rhs", [
     (16384, 999, 27, 1), (16384, 1000, 27, 3), (256, 4999, 27, 1),
@@ -251,7 +352,7 @@ def test_launch_config(B, n, W1, n_rhs, itemsize):
     if W1 + n_rhs <= sband.REGISTER_W1A:
         # The window in registers; shared memory holds the backward ring.
         assert cfg.variant == "registers"
-        per_warp = (96 + -(-n_rhs * W1 // 4) * 4) * itemsize
+        per_warp = (96 + (W1 + sband.STAGES) * 32) * itemsize
         assert per_warp % 16 == 0
     else:
         assert cfg.variant == "shared"
