@@ -2,6 +2,7 @@
 
     python3 chip_compare.py [--mma] ROOT [ROOT ...]
     python3 chip_compare.py --sband ROOT [ROOT ...]
+    python3 chip_compare.py --grid ROOT [ROOT ...]
 
 Each ROOT is a directory that holds a ``nodal_tpu_torch`` package: this
 checkout (``.``) or another commit unpacked beside it, for instance
@@ -31,6 +32,16 @@ wrong on purpose); its device ms against the plain solver's and its bound
 at ``chip_smoke.SBAND_TIME_SHAPES`` (``time_sband``), with the launch
 configuration and the SM clock; and, where every check passed, the
 ``auto`` solves/s of the mesh, midsize and branch paths (``SBAND_PATHS``).
+
+With ``--grid``, the multigrid V-cycle and the grid solve instead: the
+``vcycle`` wrapper's event time and its device time by kernel name
+(``kernel_split``) at the 1024², 1022² and 1000² finest shapes, f32 and
+f64; ``jacobi_sweeps`` at 96 sweeps on the coarsest shapes
+(``chip_smoke.CLUSTER_JACOBI_SHAPES``); kernels a solve (by trace) and the
+host-clock latency (``host_median_ms``) of the ``GRID_COMPARE_RUNS`` grids
+and the 16 probe pairs; and, where the ROOT has cluster kernels, the
+cycle at 1024² f32 and its grid solve with clusters of at most 8 against
+at most 16.
 
 Prints the card's name and power limit, then one JSON line a measurement
 tagged with its ROOT; with ``--mma`` first the FP64 ``mma.sync`` shapes'
@@ -78,6 +89,10 @@ SBAND_PATHS = [
     ("branch", lambda cs: cs.mesh_rows(cs.MESH_NODES, branch=True), "BATCH",
      "sband"),
 ]
+
+# The grid solves --grid times, by their chip_smoke.GRID_RUNS labels.
+GRID_COMPARE_RUNS = ("grid1024_f32", "grid1024_f64", "grid1000_f64",
+                     "grid1022_f32")
 
 MMA_SRC = r"""
 #include <cuda_runtime.h>
@@ -253,6 +268,69 @@ def measure_sband(root: Path) -> None:
                    {"sband": (sband.sband_solve_multi,)})
 
 
+def grid_solve_times(cs, tag, label, solve) -> None:
+    """Kernels a solve by trace and one call's host-clock latency."""
+    split = cs.kernel_split(solve, calls=2)
+    times, ms = cs.host_median_ms(solve)
+    emit({**tag, "phase": "grid_time", "path": label,
+          "kernels_per_solve": sum(split["launches_per_call"].values()),
+          "device_ms": split["device_ms"], "ms_reps": times,
+          "median_ms": ms})
+
+
+def measure_grid(root: Path) -> None:
+    cs, tag = load_root(root)
+    from nodal_tpu_torch.ops import grid, stencil as st
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for n in (1024, 1022, 1000):
+        for dtype in (torch.float32, torch.float64):
+            r = torch.randn(1, n, n, generator=gen, device="cuda",
+                            dtype=dtype)
+            emit({**tag, "phase": "vcycle", "n": n, "dtype": str(dtype),
+                  "event_ms": cs.event_median_ms(lambda: st.vcycle(r)),
+                  **cs.kernel_split(lambda: st.vcycle(r))})
+    for B, h, w, dtype in cs.CLUSTER_JACOBI_SHAPES:
+        x = torch.randn(B, h, w, generator=gen, device="cuda", dtype=dtype)
+        r = torch.randn_like(x)
+        call = lambda: st.jacobi_sweeps(x, r,  # noqa: E731
+                                        sweeps=cs.COARSE_SWEEPS)
+        emit({**tag, "phase": "jacobi_sweeps", "sweeps": cs.COARSE_SWEEPS,
+              "B": B, "h": h, "w": w, "dtype": str(dtype),
+              "event_ms": cs.event_median_ms(call),
+              **cs.kernel_split(call)})
+    for label, n, dtype, tol in cs.GRID_RUNS:
+        if label not in GRID_COMPARE_RUNS:
+            continue
+        a, b = cs.knight_probes(n)
+        grid_solve_times(cs, tag, label, lambda: grid.
+                         grid_equivalent_resistance(n, n, a, b, dtype=dtype,
+                                                    tol=tol, device="cuda"))
+    pairs = cs.probe_pairs(1024)
+    grid_solve_times(cs, tag, f"grid1024_f32_many{len(pairs)}",
+                     lambda: grid.grid_equivalent_resistance_many(
+                         1024, 1024, pairs, dtype=torch.float32, tol=1e-6,
+                         device="cuda"))
+    if not hasattr(st, "max_cluster"):
+        return
+    queried = st.max_cluster
+    r = torch.randn(1, 1024, 1024, generator=gen, device="cuda")
+    a, b = cs.knight_probes(1024)
+    for mc in (16, 8):
+        st.max_cluster = lambda dtype, mc=mc: min(mc, queried(dtype))
+        route = st.vcycle_route(1024, 1024, 8, 4, st.max_cluster(r.dtype))
+        emit({**tag, "phase": "vcycle_max_cluster", "max_cluster": mc,
+              "entry": list(route.shapes[route.stop]),
+              "cluster": route.plan and route.plan.cluster,
+              "event_ms": cs.event_median_ms(lambda: st.vcycle(r)),
+              **cs.kernel_split(lambda: st.vcycle(r))})
+        grid_solve_times(cs, {**tag, "max_cluster": mc},
+                         "grid1024_f32", lambda: grid.
+                         grid_equivalent_resistance(1024, 1024, a, b,
+                                                    tol=1e-6, device="cuda"))
+    st.max_cluster = queried
+
+
 def measure(root: Path) -> None:
     cs, tag = load_root(root)
     from nodal_tpu_torch.ops import band, block_lu, block_thomas, lu
@@ -297,7 +375,8 @@ def main() -> None:
         sys.exit("chip_compare: CUDA is not available")
     args = sys.argv[1:]
     if args[:1] == ["--measure"]:
-        (measure_sband if args[1] == "sband" else measure)(Path(args[2]))
+        {"sband": measure_sband, "grid": measure_grid}.get(
+            args[1], measure)(Path(args[2]))
         return
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -307,8 +386,8 @@ def main() -> None:
     if args[:1] == ["--mma"]:
         mma_rates()
         args = args[1:]
-    elif args[:1] == ["--sband"]:
-        mode, args = "sband", args[1:]
+    elif args[:1] in (["--sband"], ["--grid"]):
+        mode, args = args[0][2:], args[1:]
     if not args:
         sys.exit("chip_compare: name at least one ROOT")
     for root in args:

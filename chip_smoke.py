@@ -34,12 +34,15 @@ Then the matrix-free grid solve (multigrid-preconditioned CG,
 plain versions at every shape class, and the knight's-move equivalent
 resistance of the 1024×1024 grid of unit resistors (f32 and f64), of the
 4096×4096 grid, of the 1000×1000 and 1022×1022 grids (whose coarsest levels,
-125² and 511², take the multi-launch Jacobi route) and of 16 probe pairs at
-once, each held against the same solve with the plain cycle on the card,
-then a profile of the 1024² solve.  The fused-CG path
-(``grid_solve(fused_cg=True)``): its two kernels against their plain
-versions, the 1024² (f32, f64), 4096² and 16-pair solves through it, each
-held against the unfused kernel solve, and a profile of its 1024² solve.
+125² and 511², run in a thread-block cluster, or in f64 at 511² take the
+multi-launch Jacobi route) and of 16 probe pairs at once, each held against
+the same solve with the plain cycle on the card, then a profile of the
+1024² solve.  The cluster kernels (``vcycle_cluster``, ``jacobi_cluster``)
+are also read by kernel name from traces at the grid paths' shapes.  The
+fused-CG path (``grid_solve(fused_cg=True)``): its two kernels against
+their plain versions, the 1024² (f32, f64), 4096² and 16-pair solves
+through it, each held against the unfused kernel solve, and a profile of
+its 1024² solve.
 Last, the adjoint: ``backward()`` through each tier's solver on the card
 against the same solver's gradient on the CPU and a dense f64 autograd
 oracle, with the tier's kernel launched in the backward pass.
@@ -162,10 +165,14 @@ LU_TIME_SHAPES = [(GENERAL_BATCH, 1024, 1), (GENERAL_BATCH, 1024, 3),
 
 # The grid solve.  Shapes (B, h, w) of the stencil kernel checks: a 2×2
 # grid, odd dimensions, the levels of the main paths, a batch of 16 and the
-# 4096² grid.  presmooth_restrict and prolong_postsmooth take even h, w.
+# 4096² grid; 125², 250², 511² and 16 × 512² are the cluster kernels'
+# shapes (one-level coarsest routes, clusters of 16, a batch of clusters).
+# presmooth_restrict and prolong_postsmooth take even h, w.
 STENCIL_SHAPES = [(1, 2, 2), (1, 3, 5), (1, 8, 8), (1, 64, 64),
-                  (1, 512, 512), (1, 1000, 1000), (1, 1022, 1022),
-                  (1, 1024, 1024), (16, 1024, 1024), (1, 4096, 4096)]
+                  (1, 125, 125), (1, 250, 250), (1, 511, 511),
+                  (1, 512, 512), (16, 512, 512), (1, 1000, 1000),
+                  (1, 1022, 1022), (1, 1024, 1024), (16, 1024, 1024),
+                  (1, 4096, 4096)]
 JACOBI_SWEEPS = (1, 4, 9, 96)
 # Kernel and plain version run the same operations in the same order but
 # for fused multiply-adds, the reductions' order and (vcycle) where the
@@ -176,15 +183,29 @@ STENCIL_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 STENCIL_HUGE = (130, 4096, 4096)
 STENCIL_TIME_SHAPES = [(1, 1024, 1024), (1, 4096, 4096)]
 TIME_JACOBI_SWEEPS = 8      # one full tiled launch
+# Row 7 where the grid paths' coarsest levels run it: 96 sweeps at 511²
+# (grid1022) and 125² (grid1000 f64), one cluster launch where a cluster
+# holds the field.
+CLUSTER_JACOBI_SHAPES = [(1, 511, 511, torch.float32),
+                         (1, 511, 511, torch.float64),
+                         (1, 125, 125, torch.float64)]
+COARSE_SWEEPS = 96
+# Row 10 by kernel name at the grid paths' finest shapes, beside the
+# wrapper's event time; its kernel entry is the cluster cycle at its
+# 1024² f32 entry, 256², where one launch is the whole call.
+CLUSTER_TRACE_SIZES = (1024, 1022)
+CLUSTER_VCYCLE_ENTRY = (1, 256, 256)
 # (label, n, dtype, tol): the BASELINE's 1M-node solve (bench.py --grid
 # 1024 --grid-tol 1e-6), its f64 twin, 16M nodes, and the grids whose
-# coarsest level stops at 125² and 511².
+# coarsest level stops at 125² and 511² (511² f64, 6.3 MB in three fields,
+# is past a cluster: the tiled Jacobi route).
 GRID_RUNS = [("grid1024_f32", 1024, torch.float32, 1e-6),
              ("grid1024_f64", 1024, torch.float64, 1e-10),
              ("grid4096_f32", 4096, torch.float32, 1e-6),
              ("grid1000_f32", 1000, torch.float32, 1e-6),
              ("grid1000_f64", 1000, torch.float64, 1e-10),
-             ("grid1022_f32", 1022, torch.float32, 1e-6)]
+             ("grid1022_f32", 1022, torch.float32, 1e-6),
+             ("grid1022_f64", 1022, torch.float64, 1e-10)]
 GRID_PAIRS = 16
 # The fused path runs on these GRID_RUNS and the 16 pairs.
 FUSED_GRID_RUNS = ("grid1024_f32", "grid1024_f64", "grid4096_f32")
@@ -252,10 +273,12 @@ def kernel_name(full: str) -> str:
 
 def kernel_split(fn, calls: int = 3, tries: int = 3) -> dict:
     """Device ms a ``fn()`` call spends in each kernel, by kernel name, from
-    a ``torch.profiler`` trace of ``calls`` calls after one traced warm-up
-    call that is thrown away.  The profiler at times loses events, or a
-    whole trace: an empty trace is taken again, up to ``tries`` times, and
-    then reported as not measured (a diagnostic, not a check)."""
+    a ``torch.profiler`` trace of ``calls`` calls after an untraced call
+    and a traced warm-up call, both thrown away.  The profiler at times
+    loses events, or a whole trace: a trace that is empty, or in which a
+    kernel's launches are not a whole number a call, is taken again, up to
+    ``tries`` times, and then reported as not measured (a diagnostic, not a
+    check)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     for _ in range(tries):
@@ -269,9 +292,9 @@ def kernel_split(fn, calls: int = 3, tries: int = 3) -> dict:
 
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=calls),
+                     schedule=schedule(wait=1, warmup=1, active=calls),
                      on_trace_ready=ready) as prof:
-            for _ in range(1 + calls):
+            for _ in range(2 + calls):
                 fn()
                 torch.cuda.synchronize()
                 prof.step()
@@ -282,14 +305,14 @@ def kernel_split(fn, calls: int = 3, tries: int = 3) -> dict:
             name = kernel_name(e.get("name", ""))
             by_name[name] = by_name.get(name, 0.0) + e["dur"] / 1e3 / calls
             counts[name] = counts.get(name, 0) + 1
-        if by_name:
+        if by_name and all(n % calls == 0 for n in counts.values()):
             return {"device_ms": sum(by_name.values()),
                     "by_kernel_ms": dict(sorted(by_name.items(),
                                                 key=lambda kv: -kv[1])),
                     "launches_per_call": {k: v / calls
                                           for k, v in counts.items()}}
     return {"device_ms": None, "by_kernel_ms": {}, "launches_per_call": {},
-            "not_measured": f"no kernel in {tries} traces"}
+            "not_measured": f"no whole trace in {tries} tries"}
 
 
 def random_bands(B: int, n: int, dtype, gen):
@@ -1196,13 +1219,14 @@ def stencil_cases(st, B, h, w, dtype, gen, weight=1.0):
     return cases
 
 
-def stencil_bound(name: str, B: int, h: int, w: int, dtype) -> dict:
+def stencil_bound(name: str, B: int, h: int, w: int, dtype,
+                  sweeps: int = TIME_JACOBI_SWEEPS) -> dict:
     """Bytes (inputs read once, output written once) and operations of one
     stencil call: a sweep is 9 flops a cell, a restriction ~6 a fine cell,
     a prolongation 8; the V-cycle's bytes are its input and output."""
     n, item = B * h * w, torch.finfo(dtype).bits // 8
     values, flops = {
-        "jacobi_sweeps": (3 * n, 9 * TIME_JACOBI_SWEEPS * n),
+        "jacobi_sweeps": (3 * n, 9 * sweeps * n),
         "presmooth_restrict": (1.25 * n, 15 * n),
         "prolong_postsmooth": (2.25 * n, 17 * n),
         "vcycle": (2 * n, 4 / 3 * 50 * n),
@@ -1303,6 +1327,73 @@ def phase_stencil_kernels(st):
             del x, r, zc
             torch.cuda.empty_cache()
     return worst, timing
+
+
+def phase_cluster_kernels(st):
+    """The thread-block cluster kernels: the largest cluster the card
+    schedules; rows 10 and 7 by kernel name (``kernel_split``) beside the
+    wrapper's event time, ``vcycle`` at the 1024² and 1022² grids' finest
+    shapes and ``jacobi_sweeps`` at ``COARSE_SWEEPS`` sweeps on the grid
+    paths' coarsest shapes (``CLUSTER_JACOBI_SHAPES``); then the two kernel
+    entries: ``vcycle_cluster`` alone at ``CLUSTER_VCYCLE_ENTRY`` and
+    ``jacobi_cluster`` alone at 511² f32, each against its plain version
+    and its bound."""
+    emit({"phase": "cluster", "max_cluster": {
+        str(dt): st.max_cluster(dt) for dt in (torch.float32,
+                                               torch.float64)}})
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rnd = lambda *shape, dtype: torch.randn(  # noqa: E731
+        *shape, generator=gen, device="cuda", dtype=dtype)
+    for n in CLUSTER_TRACE_SIZES:
+        for dtype in (torch.float32, torch.float64):
+            r = rnd(1, n, n, dtype=dtype)
+            route = st.vcycle_route(n, n, 8, r.element_size(),
+                                    st.max_cluster(dtype))
+            emit({"phase": "kernel_trace", "wrapper": "vcycle", "n": n,
+                  "dtype": str(dtype),
+                  "entry": list(route.shapes[route.stop]),
+                  "cluster": route.plan and route.plan.cluster,
+                  "event_ms": event_median_ms(lambda: st.vcycle(r)),
+                  **kernel_split(lambda: st.vcycle(r))})
+    timing = {}
+    for B, h, w, dtype in CLUSTER_JACOBI_SHAPES:
+        x, r = rnd(B, h, w, dtype=dtype), rnd(B, h, w, dtype=dtype)
+        kernel = functools.partial(st.jacobi_sweeps, x, r,
+                                   sweeps=COARSE_SWEEPS)
+        plain = functools.partial(st.jacobi_sweeps_plain, x, r,
+                                  sweeps=COARSE_SWEEPS)
+        timing[("jacobi_cluster", (B, h, w), dtype)] = t = time_cluster(
+            kernel, plain, stencil_bound("jacobi_sweeps", B, h, w, dtype,
+                                         sweeps=COARSE_SWEEPS))
+        emit({"phase": "kernel_trace", "wrapper": "jacobi_sweeps",
+              "sweeps": COARSE_SWEEPS, "B": B, "h": h, "w": w,
+              "dtype": str(dtype),
+              "cluster": st.jacobi_cluster_size(h, w, x.element_size(),
+                                                st.max_cluster(dtype)),
+              **t, **kernel_split(kernel)})
+    B, h, w = CLUSTER_VCYCLE_ENTRY
+    r = rnd(B, h, w, dtype=torch.float32)
+    t = time_cluster(functools.partial(st.vcycle, r),
+                     functools.partial(st.vcycle_plain, r),
+                     stencil_bound("vcycle", B, h, w, torch.float32))
+    timing[("vcycle_cluster", (B, h, w), torch.float32)] = t
+    emit({"phase": "kernel_trace", "wrapper": "vcycle", "B": B, "h": h,
+          "w": w, "dtype": str(torch.float32), **t,
+          **kernel_split(lambda: st.vcycle(r))})
+    return timing
+
+
+def time_cluster(kernel, plain, bound) -> dict:
+    """A cluster route's call against its plain version, in turns (plain,
+    kernel, kernel, plain), with its bound."""
+    max_abs = float((kernel() - plain()).abs().max())
+    p1 = event_median_ms(plain)
+    k1 = event_median_ms(kernel)
+    k2 = event_median_ms(kernel)
+    p2 = event_median_ms(plain)
+    return {"ms": min(k1, k2), "plain_ms": min(p1, p2),
+            "kernel_ms": [k1, k2], "plain_ms_reps": [p1, p2],
+            "max_abs_err": max_abs, "library_ms": None, **bound}
 
 
 def fused_cg_inputs(B, h, w, dtype, gen):
@@ -1501,20 +1592,36 @@ def fused_grid_run(grid, fc, label, n, rhs, dtype, tol, readout, want,
 
 
 def grid_launch_counts(st) -> dict:
-    return {w.__name__: w.launches for w in
-            (st.jacobi_sweeps, st.presmooth_restrict, st.prolong_postsmooth,
-             st.vcycle)}
+    """Each stencil wrapper's launches, and those of the two cluster
+    kernels among them."""
+    return {**{w.__name__: w.launches for w in
+               (st.jacobi_sweeps, st.presmooth_restrict,
+                st.prolong_postsmooth, st.vcycle)},
+            "vcycle_cluster": st.vcycle.cluster_launches,
+            "jacobi_cluster": st.jacobi_sweeps.cluster_launches}
 
 
 def reset_grid_counts(st) -> None:
     for w in (st.jacobi_sweeps, st.presmooth_restrict,
               st.prolong_postsmooth, st.vcycle):
         w.launches = 0
+    st.vcycle.cluster_launches = 0
+    st.jacobi_sweeps.cluster_launches = 0
 
 
 def knight_probes(n: int):
     """bench.py's probes: the centre node and a knight's move away."""
     return (n // 2, n // 2), (n // 2 + 1, n // 2 + 2)
+
+
+def probe_pairs(n: int) -> np.ndarray:
+    """``GRID_PAIRS`` knight's-move probe pairs around the centre of an
+    n × n grid, [pairs, 2, 2]."""
+    a, _ = knight_probes(n)
+    offsets = [(dy, dx) for dy in (-96, -32, 32, 96) for dx in (-96, -32,
+                                                                 32, 96)]
+    return np.array([[(a[0] + dy, a[1] + dx), (a[0] + dy + 1, a[1] + dx + 2)]
+                     for dy, dx in offsets[:GRID_PAIRS]])
 
 
 def host_median_ms(fn, reps: int = 5):
@@ -1592,11 +1699,7 @@ def phase_grid(grid, st, fc):
           "5e-3 of 4/pi - 1/2")
 
     n = 1024
-    a, _ = knight_probes(n)
-    offsets = [(dy, dx) for dy in (-96, -32, 32, 96) for dx in (-96, -32,
-                                                                 32, 96)]
-    pairs = np.array([[(a[0] + dy, a[1] + dx), (a[0] + dy + 1, a[1] + dx + 2)]
-                      for dy, dx in offsets[:GRID_PAIRS]])
+    pairs = probe_pairs(n)
     many = functools.partial(grid.grid_equivalent_resistance_many, n, n,
                              pairs, dtype=torch.float32, tol=1e-6,
                              device="cuda")
@@ -1636,10 +1739,12 @@ def phase_grid(grid, st, fc):
 # launches (the mean projection's first pass, ``mean_partials``, shares its
 # launch with ``subtract_mean``).
 GRID_TRACE_NAMES = {
-    "jacobi_sweeps": ("jacobi_tiled", "jacobi_block"),
+    "jacobi_sweeps": ("jacobi_tiled", "jacobi_block", "jacobi_cluster"),
     "presmooth_restrict": ("presmooth_restrict_tiled",),
     "prolong_postsmooth": ("prolong_postsmooth_tiled",),
-    "vcycle": ("vcycle_block", "subtract_mean"),
+    "vcycle": ("vcycle_block", "subtract_mean", "vcycle_cluster"),
+    "vcycle_cluster": ("vcycle_cluster",),
+    "jacobi_cluster": ("jacobi_cluster",),
     "stencil_partials": ("stencil_partials_tiled",),
     "update_partials": ("update_partials_tiled",),
 }
@@ -1714,6 +1819,7 @@ def read_grid_trace(events, labels, launches):
     kernels, syncs = split_trace(events, labels)
     kinds = {"stencil_partials": ("stencil_partials_tiled",),
              "update_partials": ("update_partials_tiled",),
+             "vcycle_cluster": ("vcycle_cluster",),
              "vcycle_block": ("vcycle_block",),
              "presmooth_restrict": ("presmooth_restrict",),
              "prolong_postsmooth": ("prolong_postsmooth",),
@@ -2062,6 +2168,7 @@ def main() -> None:
     st_worst, st_timing = phase_stencil_kernels(stencil)
     emit({"phase": "kernel_check_worst",
           "stencil": {f"{k[0]} {k[1]}": v for k, v in st_worst.items()}})
+    st_timing.update(phase_cluster_kernels(stencil))
     clock("stencil kernels")
     fc_worst, fc_timing = phase_fused_cg_kernels(fused_cg)
     emit({"phase": "kernel_check_worst",
@@ -2102,6 +2209,16 @@ def main() -> None:
                              ("presmooth_restrict", 211),
                              ("prolong_postsmooth", 286),
                              ("vcycle", 380))),
+        kernel_entry("vcycle_cluster", "nodal_tpu_torch/csrc/stencil.cu",
+                     "nodal_tpu/ops/pallas_stencil.py:380",
+                     st_launches["vcycle_cluster"],
+                     st_timing[("vcycle_cluster", CLUSTER_VCYCLE_ENTRY,
+                                torch.float32)]),
+        kernel_entry("jacobi_cluster", "nodal_tpu_torch/csrc/stencil.cu",
+                     "nodal_tpu/ops/pallas_stencil.py:137",
+                     st_launches["jacobi_cluster"],
+                     st_timing[("jacobi_cluster", (1, 511, 511),
+                                torch.float32)]),
         *(kernel_entry(name, "nodal_tpu_torch/csrc/cg.cu",
                        f"nodal_tpu/ops/pallas_cg.py:{line}",
                        fc_launches[name],

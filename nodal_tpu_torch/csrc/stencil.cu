@@ -1,11 +1,13 @@
 // Multigrid stencil kernels of the matrix-free grid solve, for sm_90a.
 //
 // Replace the Pallas TPU kernels of nodal_tpu/ops/pallas_stencil.py:
-//   * jacobi_tiled / jacobi_block   <- fused_jacobi (:137)
+//   * jacobi_tiled / jacobi_block / jacobi_cluster
+//                                   <- fused_jacobi (:137)
 //   * presmooth_restrict_tiled      <- fused_presmooth_restrict (:211)
 //   * prolong_postsmooth_tiled      <- fused_prolong_postsmooth (:286)
-//   * vcycle_block (+ mean_partials / subtract_mean for a coarsest level
-//     that no block holds)          <- fused_vcycle (:380)
+//   * vcycle_cluster / vcycle_block (+ jacobi_cluster for a coarsest level
+//     alone, mean_partials / subtract_mean for one no cluster holds)
+//                                   <- fused_vcycle (:380)
 // Semantics follow the plain versions in nodal_tpu_torch/ops/stencil.py:
 // fields are [B, h, w], the Laplacian is the edge-replicate 5-point stencil
 // L_w x = w (4x - up - down - left - right), a weighted-Jacobi sweep is
@@ -43,15 +45,28 @@
 //     bit).  A coarsest level too large for a block goes through the
 //     Jacobi kernels and mean_partials + subtract_mean, a two-pass
 //     reduction with no atomics.
+//   * Clusters: the TPU kernel's premise, one fast memory holding the
+//     hierarchy, returns on Hopper across a thread-block cluster: up to 16
+//     CTAs on neighbouring SMs, 16 x 227 KB, read each other's shared
+//     memory.  vcycle_cluster holds the hierarchy below a larger entry
+//     level (256^2 instead of 128^2 in f32, 64^2 in f64) in row strips,
+//     one cluster a sample (see "thread-block clusters" below); a level
+//     with larger strips runs faster in the tiled kernels, which the
+//     Python plan keeps above the entry.  jacobi_cluster runs all
+//     sweeps of a field past one block in one launch, and with its mean
+//     projections a coarsest level that no block holds.
 // Bound on the H100: bytes.  Every kernel does a few flops a value (a sweep
 // is 8); at 3.35 TB/s a 1024^2 f32 field read or written costs 1.25 us,
 // against 67 TFLOP/s for the arithmetic.  The tiled kernels read each input
 // once (plus halo re-reads, 1.9x for an 8-sweep Jacobi window, which the
 // cache absorbs in part) and write each output once.  The single-block
-// V-cycle is latency-bound: one SM, ~10 barriers a sweep.
+// V-cycle is latency-bound: one SM, ~10 barriers a sweep.  The cluster
+// kernels are latency-bound too, by one cluster barrier a sweep and the
+// small levels in rank 0, but spread a level's sweeps over C SMs.
 // All offsets into a batch are size_t: [130, 4096, 4096] is past 2^31
 // values.  Each launcher returns cudaGetLastError().
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -60,13 +75,15 @@
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 using nodal_grid::block_sum;
 using nodal_grid::ceil_div;
 using nodal_grid::lap_point;
 using nodal_grid::mirror;
 
 constexpr int kThreads = 256;      // tiled kernels
-constexpr int kBlockThreads = 512; // single-block kernels (<= 512: see pcr.cu)
+constexpr int kBlockThreads = 512; // single-block, cluster kernels (see pcr.cu)
 constexpr int kTileH = 32;         // Jacobi output tile
 constexpr int kTileW = 64;
 constexpr int kMaxHalo = 8;        // sweeps per tiled Jacobi launch
@@ -76,6 +93,10 @@ constexpr int kMaxLevels = 32;
 constexpr int kDefaultSmem = 48 * 1024;
 constexpr int kMaxSmem = 232448;   // 227 KB a block on the H100
 constexpr int kMeanChunk = 4096;   // values a block sums in mean_partials
+constexpr int kMaxCluster = 16;    // CTAs a cluster (past 8: non-portable)
+constexpr int kRank0Rows = 4;      // thinner strips: the level goes to rank 0
+constexpr int kSlots = 2;          // a cluster sum's alternating slots
+constexpr int kWarpCoarse = 256;   // coarsest values (w <= 32): one warp
 
 // One weighted-Jacobi update.
 template <typename T>
@@ -326,34 +347,115 @@ size_t vcycle_smem_values(const Levels& lv) {
   return v;
 }
 
+// Sum over a warp of each lane's s by a fixed xor tree: every lane gets the
+// same value (addition commutes), bit for bit from run to run.
 template <typename T>
-__global__ void __launch_bounds__(kBlockThreads)
-    vcycle_block(const T* __restrict__ r_in, T* __restrict__ out, Levels lv,
-                 int nu, int coarse_sweeps, T weight, T c) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ T red[kBlockThreads];
-  const int L = lv.n - 1;
-  const int N0 = lv.h[0] * lv.w[0];
-  T* tmp = reinterpret_cast<T*>(smem_raw);
-  T* xs[kMaxLevels];
-  T* rs[kMaxLevels] = {};
-  T* p = tmp + N0;
-  for (int l = 0; l <= L; ++l) {
-    const int n = lv.h[l] * lv.w[l];
-    xs[l] = p;
-    p += n;
-    if (l > 0) {
-      rs[l] = p;
-      p += n;
+__device__ __forceinline__ T warp_sum(T s) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  return s;
+}
+
+// A coarsest level of n = h w <= kWarpCoarse values, w <= 32, solved by
+// warp 0 alone in registers: lane l holds cells l, l + 32, ... (K a lane)
+// and reads its neighbours by shuffles, so a sweep takes no barrier and
+// no memory.  rz = r minus its mean, sweeps from zero, x = the result
+// minus its mean (both written back).  Ends with the block barrier.
+template <typename T, int K>
+__device__ void warp_coarse_regs(const T* r, T* x, int h, int w, int sweeps,
+                                 T weight, T c) {
+  const int n = h * w, lane = threadIdx.x;
+  const unsigned all = 0xffffffffu;
+  if (lane < 32) {
+    T rz[K], v[K];
+    int i[K], j[K];
+    T s = T(0);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int t = lane + 32 * k;
+      i[k] = t / w;
+      j[k] = t - i[k] * w;
+      rz[k] = t < n ? r[t] : T(0);
+      s += rz[k];
+    }
+    const T mr = warp_sum(s) / T(n);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      rz[k] -= mr;
+      v[k] = sweeps > 0 ? c * rz[k] : T(0);  // the first sweep from zero
+    }
+    const int up_lane = (lane - w) & 31, dn_lane = (lane + w) & 31;
+    for (int it = 1; it < sweeps; ++it) {
+      T nv[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        // Cell t - w lies in this register (lane >= w) or the one before;
+        // t + w in this one (lane + w < 32) or the next; t -+ 1 likewise.
+        const T up_a = __shfl_sync(all, v[k], up_lane);
+        const T up_b = __shfl_sync(all, v[k > 0 ? k - 1 : 0], up_lane);
+        const T dn_a = __shfl_sync(all, v[k], dn_lane);
+        const T dn_b = __shfl_sync(all, v[k < K - 1 ? k + 1 : k], dn_lane);
+        const T lf_a = __shfl_sync(all, v[k], (lane - 1) & 31);
+        const T lf_b = __shfl_sync(all, v[k > 0 ? k - 1 : 0], 31);
+        const T rt_a = __shfl_sync(all, v[k], (lane + 1) & 31);
+        const T rt_b = __shfl_sync(all, v[k < K - 1 ? k + 1 : k], 0);
+        const T vk = v[k];
+        const T up = i[k] > 0 ? (lane >= w ? up_a : up_b) : vk;
+        const T dn = i[k] < h - 1 ? (lane + w < 32 ? dn_a : dn_b) : vk;
+        const T lf = j[k] > 0 ? (lane > 0 ? lf_a : lf_b) : vk;
+        const T rt = j[k] < w - 1 ? (lane < 31 ? rt_a : rt_b) : vk;
+        nv[k] = vk + c * (rz[k] - lap_point(vk, up, dn, lf, rt, weight));
+      }
+#pragma unroll
+      for (int k = 0; k < K; ++k) v[k] = nv[k];
+    }
+    s = T(0);
+#pragma unroll
+    for (int k = 0; k < K; ++k) s += lane + 32 * k < n ? v[k] : T(0);
+    const T mx = warp_sum(s) / T(n);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (lane + 32 * k < n) x[lane + 32 * k] = v[k] - mx;
     }
   }
-  const size_t base = static_cast<size_t>(blockIdx.x) * N0;
-  const T* r0 = r_in + base;
+  __syncthreads();
+}
+
+// The coarsest solve by one warp, in registers, for the register count
+// its size needs (x gets the mean-projected solution).
+template <typename T>
+__device__ void warp_coarse_solve(const T* r, T* x, int h, int w, int sweeps,
+                                  T weight, T c) {
+  switch ((h * w + 31) / 32) {
+    case 1: warp_coarse_regs<T, 1>(r, x, h, w, sweeps, weight, c); break;
+    case 2: warp_coarse_regs<T, 2>(r, x, h, w, sweeps, weight, c); break;
+    case 3: warp_coarse_regs<T, 3>(r, x, h, w, sweeps, weight, c); break;
+    case 4: warp_coarse_regs<T, 4>(r, x, h, w, sweeps, weight, c); break;
+    case 5: warp_coarse_regs<T, 5>(r, x, h, w, sweeps, weight, c); break;
+    case 6: warp_coarse_regs<T, 6>(r, x, h, w, sweeps, weight, c); break;
+    case 7: warp_coarse_regs<T, 7>(r, x, h, w, sweeps, weight, c); break;
+    default: warp_coarse_regs<T, 8>(r, x, h, w, sweeps, weight, c); break;
+  }
+}
+
+// The V(nu, nu) cycle of one block on levels top .. L = lv.n - 1 of whole
+// fields, against rtop at level top: x of each level in xs[l] (level top's
+// left there, not mean-projected), r of the levels below top in rs[l], tmp
+// one field of level top's size.  The coarsest level's r is projected in
+// place; with top == L, the coarsest alone, rtop is projected into tmp and
+// the sweeps ping-pong through extra instead, unless extra is null, which
+// says rtop lies in this block's shared memory and is projected in place.
+template <typename T>
+__device__ void block_vcycle(const T* rtop, T* const* xs, T* const* rs,
+                             T* tmp, T* extra, const Levels& lv, int top,
+                             int nu, int coarse_sweeps, T weight, T c,
+                             T* red) {
+  const int L = lv.n - 1;
 
   // Descent: nu sweeps from zero, residual, restriction.
-  for (int l = 0; l < L; ++l) {
+  for (int l = top; l < L; ++l) {
     const int h = lv.h[l], w = lv.w[l], n = h * w;
-    const T* r = l == 0 ? r0 : rs[l];
+    const T* r = l == top ? rtop : rs[l];
     field_fill_zero(xs[l], n);
     field_sweeps(xs[l], r, tmp, h, w, nu, weight, c);
     for (int t = threadIdx.x; t < n; t += blockDim.x) {
@@ -383,32 +485,38 @@ __global__ void __launch_bounds__(kBlockThreads)
   // mean-projected solution.
   {
     const int h = lv.h[L], w = lv.w[L], n = h * w;
-    T* r = rs[L];
+    T* r = L > top ? rs[L] : const_cast<T*>(rtop);
     T* sweep_tmp = tmp;
-    if (L == 0) {
-      // The entry level is the coarsest: its r stays in device memory, so
-      // the projected r goes to tmp and the sweeps ping-pong through the
-      // extra field the launcher reserves after x.
+    const bool from_device = L == top && extra != nullptr;
+    const bool one_warp = n <= kWarpCoarse && w <= 32;
+    if (one_warp) {
+      warp_coarse_solve(from_device ? rtop : r, xs[L], h, w, coarse_sweeps,
+                        weight, c);
+    } else if (from_device) {
       T s = T(0);
-      for (int t = threadIdx.x; t < n; t += blockDim.x) s += r0[t];
+      for (int t = threadIdx.x; t < n; t += blockDim.x) s += rtop[t];
       const T mean = block_sum(s, red) / T(n);
-      for (int t = threadIdx.x; t < n; t += blockDim.x) tmp[t] = r0[t] - mean;
+      for (int t = threadIdx.x; t < n; t += blockDim.x) {
+        tmp[t] = rtop[t] - mean;
+      }
       __syncthreads();
       r = tmp;
-      sweep_tmp = xs[0] + n;
+      sweep_tmp = extra;
     } else {
       field_subtract_mean(r, n, red);
     }
-    field_fill_zero(xs[L], n);
-    field_sweeps(xs[L], r, sweep_tmp, h, w, coarse_sweeps, weight, c);
-    field_subtract_mean(xs[L], n, red);
+    if (!one_warp) {
+      field_fill_zero(xs[L], n);
+      field_sweeps(xs[L], r, sweep_tmp, h, w, coarse_sweeps, weight, c);
+      field_subtract_mean(xs[L], n, red);
+    }
   }
 
   // Ascent: prolongated correction, nu sweeps.
-  for (int l = L - 1; l >= 0; --l) {
+  for (int l = L - 1; l >= top; --l) {
     const int h = lv.h[l], w = lv.w[l], n = h * w;
     const int hc = lv.h[l + 1], wc = lv.w[l + 1];
-    const T* r = l == 0 ? r0 : rs[l];
+    const T* r = l == top ? rtop : rs[l];
     for (int t = threadIdx.x; t < n; t += blockDim.x) {
       const int i = t / w, j = t - i * w;
       xs[l][t] += prolong_at(xs[l + 1], i, j, hc, wc);
@@ -416,9 +524,461 @@ __global__ void __launch_bounds__(kBlockThreads)
     __syncthreads();
     field_sweeps(xs[l], r, tmp, h, w, nu, weight, c);
   }
+}
 
+template <typename T>
+__global__ void __launch_bounds__(kBlockThreads)
+    vcycle_block(const T* __restrict__ r_in, T* __restrict__ out, Levels lv,
+                 int nu, int coarse_sweeps, T weight, T c) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ T red[kBlockThreads];
+  const int L = lv.n - 1;
+  const int N0 = lv.h[0] * lv.w[0];
+  T* tmp = reinterpret_cast<T*>(smem_raw);
+  T* xs[kMaxLevels];
+  T* rs[kMaxLevels] = {};
+  T* p = tmp + N0;
+  for (int l = 0; l <= L; ++l) {
+    const int n = lv.h[l] * lv.w[l];
+    xs[l] = p;
+    p += n;
+    if (l > 0) {
+      rs[l] = p;
+      p += n;
+    }
+  }
+  // A one-level cycle's sweeps ping-pong through the field after x, which
+  // the launcher reserves.
+  const size_t base = static_cast<size_t>(blockIdx.x) * N0;
+  block_vcycle(r_in + base, xs, rs, tmp, xs[0] + N0, lv, 0, nu,
+               coarse_sweeps, weight, c, red);
   field_subtract_mean(xs[0], N0, red);
   for (int t = threadIdx.x; t < N0; t += blockDim.x) out[base + t] = xs[0][t];
+}
+
+// ---------------------------------------------------- thread-block clusters
+//
+// A cluster of C CTAs (C a power of two, up to 16 on neighbouring SMs) holds
+// one sample.  Each level down to the last one whose strips keep kRank0Rows
+// rows is cut into C row strips: those of that last level (rank k owns rows
+// k h / C .. (k + 1) h / C) doubled level by level, so a coarse strip is the
+// restriction of its fine strip and every fine strip starts on an even row.
+// Every CTA lays its shared memory out alike, so a neighbour's field is the
+// same offset mapped into its CTA (cluster.map_shared_rank).  A sweep reads
+// the rows above and below its strip straight from the neighbours' shared
+// memory, with ping-pong buffers and one cluster barrier a sweep, split so
+// that the interior rows are swept while it settles.  The barrier's release
+// compiles to a GPU-scope fence (MEMBAR.ALL.GPU): with the barrier itself,
+// about a third of a 511^2 sweep on the H100.  The sweeps walk down columns
+// with the rows above and at a cell in registers; at 16 CTAs they are bound
+// by instruction issue.  The levels below the cut live whole in rank 0,
+// which runs them as vcycle_block does (the coarsest in one warp's
+// registers) while the other ranks wait at the barrier; the
+// restriction into them writes rank 0's shared memory, the prolongation out
+// of them reads it.  A mean over the cluster is each rank's fixed-tree block
+// sum in a slot, read by every rank in rank order after a barrier: the same
+// value on every rank, bit for bit from solve to solve, no atomics.
+
+// This CTA's rows [lo, hi) of a level cut in strips, the rows of the strip
+// above it, and the cut: the boundaries of the last cut level (hl rows)
+// shifted left by `shift`.
+struct Strip {
+  int lo, hi, w, prev_rows, rank, C;
+  __device__ int rows() const { return hi - lo; }
+};
+
+__device__ __forceinline__ Strip strip_of(int hl, int shift, int w, int rank,
+                                          int C) {
+  Strip s;
+  s.lo = (rank * hl / C) << shift;
+  s.hi = ((rank + 1) * hl / C) << shift;
+  s.prev_rows = rank > 0 ? s.lo - (((rank - 1) * hl / C) << shift) : 0;
+  s.w = w;
+  s.rank = rank;
+  s.C = C;
+  return s;
+}
+
+// The rows just above and below a strip of buf: the neighbours' edge rows
+// through distributed shared memory, or the strip's own edge row at the
+// field's edge (the edge-replicate boundary).
+template <typename T>
+__device__ __forceinline__ const T* halo_up(cg::cluster_group& cl,
+                                            const Strip& s, T* buf) {
+  return s.rank > 0 ? cl.map_shared_rank(buf, s.rank - 1) +
+                          (s.prev_rows - 1) * s.w
+                    : buf;
+}
+
+template <typename T>
+__device__ __forceinline__ const T* halo_down(cg::cluster_group& cl,
+                                              const Strip& s, T* buf) {
+  return s.rank < s.C - 1 ? cl.map_shared_rank(buf, s.rank + 1)
+                          : buf + (s.rows() - 1) * s.w;
+}
+
+// L_w x at the strip's cell (i, j), local row i of n.
+template <typename T>
+__device__ __forceinline__ T strip_lap(const T* x, const T* up_row,
+                                       const T* dn_row, int i, int j, int n,
+                                       int w, T weight) {
+  const T* row = x + i * w;
+  const T v = row[j];
+  const T up = i > 0 ? row[j - w] : up_row[j];
+  const T dn = i < n - 1 ? row[j + w] : dn_row[j];
+  const T lf = j > 0 ? row[j - 1] : v;
+  const T rt = j < w - 1 ? row[j + 1] : v;
+  return lap_point(v, up, dn, lf, rt, weight);
+}
+
+// The cluster barrier split in its two halves: arrive (release) when this
+// thread's writes that others read are done, wait (acquire) when it needs
+// theirs.  cl.sync() is the two back to back.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// This thread's cells of a field w wide, with no division a cell: rows
+// i0, i0 + di, ... and columns j0, j0 + dj, ... (no rows when i0 is past
+// the field).
+struct Cells {
+  int i0, di, j0, dj;
+};
+
+__device__ __forceinline__ Cells cells_of(int w) {
+  const int nt = blockDim.x, tid = threadIdx.x;
+  if (w >= nt) return {0, 1, tid, nt};
+  const int per = nt / w, i = tid / w;
+  return {i < per ? i : 1 << 30, per, tid - i * w, w};
+}
+
+// One sweep of rows i0 .. i1 - 1 of a w-wide field whose rows i0 - 1 and
+// i1 lie in src too, walking down columns: thread (g, j) takes column j
+// (and j + blockDim.x, ... when the field is wider) of row group g, and
+// keeps the rows above and at the cell in registers.
+template <typename T>
+__device__ void walk_sweep(const T* src, T* dst, const T* r, int i0, int i1,
+                           int w, T weight, T c) {
+  const int m = i1 - i0, nt = blockDim.x;
+  int groups = 1, g = 0, j0 = threadIdx.x, dj = nt;
+  if (w < nt) {
+    groups = min(nt / w, m);
+    g = threadIdx.x / w;
+    j0 = threadIdx.x - g * w;
+    dj = w;
+  }
+  if (g >= groups) return;
+  const int a = i0 + g * m / groups, b = i0 + (g + 1) * m / groups;
+  for (int j = j0; j < w; j += dj) {
+    T up = src[(a - 1) * w + j];
+    T v = src[a * w + j];
+    for (int i = a; i < b; ++i) {
+      const int q = i * w + j;
+      const T dn = src[q + w];
+      const T lf = j > 0 ? src[q - 1] : v;
+      const T rt = j < w - 1 ? src[q + 1] : v;
+      dst[q] = v + c * (r[q] - lap_point(v, up, dn, lf, rt, weight));
+      up = v;
+      v = dn;
+    }
+  }
+}
+
+// One sweep of a strip, src -> dst, ending at the cluster barrier: its edge
+// rows first (they alone read the neighbours' rows), the arrival, then the
+// interior while the barrier settles, the block barrier for the interior's
+// writes, and the wait.  A neighbour reads only dst's edge rows.
+template <typename T>
+__device__ void strip_sweep(const Strip& s, const T* up, const T* dn, T* src,
+                            T* dst, const T* r, T weight, T c) {
+  const int n = s.rows(), w = s.w, edge = (n > 1 ? 2 : 1) * w;
+  for (int t = threadIdx.x; t < edge; t += blockDim.x) {
+    const int i = t < w ? 0 : n - 1, j = t < w ? t : t - w;
+    const int q = i * w + j;
+    dst[q] = src[q] + c * (r[q] - strip_lap(src, up, dn, i, j, n, w,
+                                            weight));
+  }
+  cluster_arrive();
+  if (n > 2) walk_sweep(src, dst, r, 1, n - 1, w, weight, c);
+  __syncthreads();
+  cluster_wait();
+}
+
+// k sweeps of a strip against r from the start value in b[k % 2] (visible
+// to the cluster) into b[0]: sweep j reads b[(k - j + 1) % 2] and writes
+// b[(k - j) % 2].
+template <typename T>
+__device__ void strip_sweeps(cg::cluster_group& cl, const Strip& s, T* b0,
+                             T* b1, const T* r, int k, T weight, T c) {
+  const T* up[2] = {halo_up(cl, s, b0), halo_up(cl, s, b1)};
+  const T* dn[2] = {halo_down(cl, s, b0), halo_down(cl, s, b1)};
+  for (int j = 1; j <= k; ++j) {
+    const int from = (k - j + 1) % 2;
+    strip_sweep(s, up[from], dn[from], from ? b1 : b0, from ? b0 : b1, r,
+                weight, c);
+  }
+}
+
+// k sweeps from zero into b[0]: the first is c r and reads no halo.
+template <typename T>
+__device__ void strip_sweeps_from_zero(cg::cluster_group& cl, const Strip& s,
+                                       T* b0, T* b1, const T* r, int k,
+                                       T weight, T c) {
+  const int N = s.rows() * s.w;
+  T* first = k % 2 ? b0 : b1;  // b[(k - 1) % 2]
+  for (int t = threadIdx.x; t < N; t += blockDim.x) {
+    if (k == 0) {
+      b0[t] = T(0);
+    } else {
+      first[t] = c * r[t];
+    }
+  }
+  cl.sync();
+  if (k > 0) strip_sweeps(cl, s, b0, b1, r, k - 1, weight, c);
+}
+
+// out = r - L_w x on the strip.
+template <typename T>
+__device__ void strip_residual(cg::cluster_group& cl, const Strip& s, T* x,
+                               const T* r, T* out, T weight) {
+  const int n = s.rows(), w = s.w;
+  const T* up = halo_up(cl, s, x);
+  const T* dn = halo_down(cl, s, x);
+  const Cells cc = cells_of(w);
+  for (int i = cc.i0; i < n; i += cc.di) {
+    for (int j = cc.j0; j < w; j += cc.dj) {
+      out[i * w + j] = r[i * w + j] - strip_lap(x, up, dn, i, j, n, w,
+                                                weight);
+    }
+  }
+  cl.sync();
+}
+
+// The restriction of the strip's residual res (an h-row level) onto coarse
+// rows lo/2 .. hi/2: fine rows 2I - 1 and 2I + 2 past the strip are the
+// neighbours' edge rows.  Coarse row I lands in row I - out_row0 of out
+// (this CTA's coarse strip, or rank 0's whole field).
+template <typename T>
+__device__ void strip_restrict(cg::cluster_group& cl, const Strip& s, int h,
+                               T* res, T* out, int out_row0) {
+  const int w = s.w, wc = w / 2, I0 = s.lo / 2, nI = s.rows() / 2;
+  const T* up = halo_up(cl, s, res);
+  const T* dn = halo_down(cl, s, res);
+  const Cells cc = cells_of(wc);
+  for (int I = I0 + cc.i0; I < I0 + nI; I += cc.di) {
+    for (int J = cc.j0; J < wc; J += cc.dj) {
+      const int ri[4] = {max(2 * I - 1, 0), 2 * I, 2 * I + 1,
+                         min(2 * I + 2, h - 1)};
+      const int cj[4] = {max(2 * J - 1, 0), 2 * J, 2 * J + 1,
+                         min(2 * J + 2, w - 1)};
+      T col[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const T* row = ri[q] < s.lo    ? up
+                       : ri[q] >= s.hi ? dn
+                                       : res + (ri[q] - s.lo) * w;
+        col[q] = restrict4(row[cj[0]], row[cj[1]], row[cj[2]], row[cj[3]]);
+    }
+    out[static_cast<size_t>(I - out_row0) * wc + J] =
+        restrict4(col[0], col[1], col[2], col[3]);
+    }
+  }
+  cl.sync();
+}
+
+// dst = src + P z on the strip, z the coarse x (hc x wc): cut in the same
+// strips (its rows past this strip's from the neighbours) or, with whole,
+// rank 0's whole field.
+template <typename T>
+__device__ void strip_prolong_add(cg::cluster_group& cl, const Strip& s,
+                                  const T* src, T* dst, T* z, bool whole,
+                                  int hc, int wc) {
+  const int w = s.w, I0 = s.lo / 2, I1 = s.hi / 2;
+  const T* z_own = whole ? cl.map_shared_rank(z, 0) : z;
+  const T* z_prev = !whole && s.rank > 0
+                        ? cl.map_shared_rank(z, s.rank - 1) +
+                              (s.prev_rows / 2 - 1) * wc
+                        : z_own;
+  const T* z_next = !whole && s.rank < s.C - 1
+                        ? cl.map_shared_rank(z, s.rank + 1)
+                        : z_own;
+  const int own0 = whole ? 0 : I0;
+  const Cells cc = cells_of(w);
+  for (int li = cc.i0; li < s.rows(); li += cc.di) {
+    for (int j = cc.j0; j < w; j += cc.dj) {
+      const int i = s.lo + li, t = li * w + j;
+      const int ic = i >> 1, jc = j >> 1;
+      const int ia = (i & 1) ? min(ic + 1, hc - 1) : max(ic - 1, 0);
+      const int ja = (j & 1) ? min(jc + 1, wc - 1) : max(jc - 1, 0);
+      const T* z0 = z_own + static_cast<size_t>(ic - own0) * wc;
+      const T* z1 = whole || (ia >= I0 && ia < I1)
+                        ? z_own + static_cast<size_t>(ia - own0) * wc
+                    : ia < I0 ? z_prev
+                              : z_next;
+      const T a = T(0.75) * z0[jc] + T(0.25) * z1[jc];
+      const T b = T(0.75) * z0[ja] + T(0.25) * z1[ja];
+      dst[t] = src[t] + (T(0.75) * a + T(0.25) * b);
+    }
+  }
+  cl.sync();
+}
+
+// The sum over the cluster of each rank's s, in rank order; `turn` picks
+// the slot, alternating so that a slot is written again only after the
+// next sum's barrier.
+template <typename T>
+__device__ T cluster_sum(cg::cluster_group& cl, T s, T* red, T* slots,
+                         int& turn) {
+  const T part = block_sum(s, red);
+  T* slot = slots + turn;
+  turn ^= 1;
+  if (threadIdx.x == 0) *slot = part;
+  cl.sync();
+  T total = T(0);
+  for (unsigned k = 0; k < cl.num_blocks(); ++k) {
+    total += *cl.map_shared_rank(slot, k);
+  }
+  return total;
+}
+
+// x -= mean of the cut field (n values in all) on this CTA's N values.
+template <typename T>
+__device__ void strip_subtract_mean(cg::cluster_group& cl, T* x, int N,
+                                    int n, T* red, T* slots, int& turn) {
+  T s = T(0);
+  for (int t = threadIdx.x; t < N; t += blockDim.x) s += x[t];
+  const T mean = cluster_sum(cl, s, red, slots, turn) / T(n);
+  for (int t = threadIdx.x; t < N; t += blockDim.x) x[t] -= mean;
+  __syncthreads();
+}
+
+// The tail of a cluster V-cycle: its levels, the cut and the shared-memory
+// layout (offsets in values; tmp at 0).
+struct ClusterLevels {
+  Levels lv;                // entry first
+  int d;                    // levels 0 .. d - 1 cut in strips
+  int C;                    // CTAs a sample
+  int xoff[kMaxLevels];     // x of each level
+  int roff[kMaxLevels];     // r of each level, -1 for the entry's (device)
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kBlockThreads)
+    vcycle_cluster(const T* __restrict__ r_in, T* __restrict__ out,
+                   ClusterLevels p, int nu, int coarse_sweeps, T weight,
+                   T c) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ T red[kBlockThreads];
+  __shared__ T slots[kSlots];
+  cg::cluster_group cl = cg::this_cluster();
+  const Levels& lv = p.lv;
+  const int rank = static_cast<int>(cl.block_rank());
+  const int L = lv.n - 1, D = p.d - 1, hl = lv.h[D];
+  T* tmp = reinterpret_cast<T*>(smem_raw);
+  T* xs[kMaxLevels];
+  T* rs[kMaxLevels];
+  for (int l = 0; l <= L; ++l) {
+    xs[l] = tmp + p.xoff[l];
+    rs[l] = p.roff[l] < 0 ? nullptr : tmp + p.roff[l];
+  }
+  const Strip s0 = strip_of(hl, D, lv.w[0], rank, p.C);
+  const size_t base = static_cast<size_t>(blockIdx.y) * lv.h[0] * lv.w[0] +
+                      static_cast<size_t>(s0.lo) * lv.w[0];
+  const T* r0 = r_in + base;
+  int turn = 0;
+
+  // Descent over the cut levels: nu sweeps from zero, residual,
+  // restriction (into rank 0's shared memory below the cut).
+  const int last = min(D, L - 1);
+  for (int l = 0; l <= last; ++l) {
+    const Strip s = strip_of(hl, D - l, lv.w[l], rank, p.C);
+    const T* r = l == 0 ? r0 : rs[l];
+    strip_sweeps_from_zero(cl, s, xs[l], tmp, r, nu, weight, c);
+    strip_residual(cl, s, xs[l], r, tmp, weight);
+    if (l < D) {
+      strip_restrict(cl, s, lv.h[l], tmp, rs[l + 1], s.lo / 2);
+    } else {
+      strip_restrict(cl, s, lv.h[l], tmp, cl.map_shared_rank(rs[l + 1], 0),
+                     0);
+    }
+  }
+
+  if (L > D) {
+    // The levels below the cut, in rank 0 alone.
+    if (rank == 0) {
+      block_vcycle(rs[D + 1], xs, rs, tmp, static_cast<T*>(nullptr), lv,
+                   D + 1, nu, coarse_sweeps, weight, c, red);
+    }
+    cl.sync();
+  } else {
+    // A cut coarsest level: its mean-projected sweeps over the cluster.
+    const Strip s = strip_of(hl, 0, lv.w[L], rank, p.C);
+    const int N = s.rows() * s.w, n = lv.h[L] * lv.w[L];
+    strip_subtract_mean(cl, rs[L], N, n, red, slots, turn);
+    strip_sweeps_from_zero(cl, s, xs[L], tmp, rs[L], coarse_sweeps, weight,
+                           c);
+    strip_subtract_mean(cl, xs[L], N, n, red, slots, turn);
+    cl.sync();
+  }
+
+  // Ascent: the prolongated correction, nu sweeps.
+  for (int l = last; l >= 0; --l) {
+    const Strip s = strip_of(hl, D - l, lv.w[l], rank, p.C);
+    const T* r = l == 0 ? r0 : rs[l];
+    strip_prolong_add(cl, s, xs[l], nu % 2 ? tmp : xs[l], xs[l + 1], l >= D,
+                      lv.h[l + 1], lv.w[l + 1]);
+    strip_sweeps(cl, s, xs[l], tmp, r, nu, weight, c);
+  }
+
+  // The entry's mean projection.
+  const int N0 = s0.rows() * s0.w;
+  strip_subtract_mean(cl, xs[0], N0, lv.h[0] * lv.w[0], red, slots, turn);
+  for (int t = threadIdx.x; t < N0; t += blockDim.x) out[base + t] = xs[0][t];
+  cl.sync();  // no CTA leaves while a neighbour may read its shared memory
+}
+
+// sweeps Jacobi sweeps of [h, w] fields cut in C row strips, x, its
+// ping-pong copy and r in each CTA's shared memory.  With project, x is
+// not read: the sweeps start from zero against r minus its mean, and the
+// result has its mean subtracted (a coarsest level's solve).
+template <typename T>
+__global__ void __launch_bounds__(kBlockThreads)
+    jacobi_cluster(const T* __restrict__ x, const T* __restrict__ r,
+                   T* __restrict__ out, int h, int w, int sweeps, int project,
+                   T weight, T c) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ T red[kBlockThreads];
+  __shared__ T slots[kSlots];
+  cg::cluster_group cl = cg::this_cluster();
+  const int C = static_cast<int>(cl.num_blocks());
+  const Strip s = strip_of(h, 0, w, static_cast<int>(cl.block_rank()), C);
+  const int stride = (h + C - 1) / C * w, N = s.rows() * w;
+  T* X = reinterpret_cast<T*>(smem_raw);
+  T* Y = X + stride;
+  T* R = Y + stride;
+  const size_t base = static_cast<size_t>(blockIdx.y) * h * w +
+                      static_cast<size_t>(s.lo) * w;
+  int turn = 0;
+  if (project) {
+    for (int t = threadIdx.x; t < N; t += blockDim.x) R[t] = r[base + t];
+    __syncthreads();
+    strip_subtract_mean(cl, R, N, h * w, red, slots, turn);
+    strip_sweeps_from_zero(cl, s, X, Y, R, sweeps, weight, c);
+    strip_subtract_mean(cl, X, N, h * w, red, slots, turn);
+  } else {
+    T* start = sweeps % 2 ? Y : X;
+    for (int t = threadIdx.x; t < N; t += blockDim.x) {
+      start[t] = x[base + t];
+      R[t] = r[base + t];
+    }
+    cl.sync();
+    strip_sweeps(cl, s, X, Y, R, sweeps, weight, c);
+  }
+  for (int t = threadIdx.x; t < N; t += blockDim.x) out[base + t] = X[t];
+  cl.sync();  // no CTA leaves while a neighbour may read its shared memory
 }
 
 // Two-pass deterministic mean projection of [B, n] fields: per-chunk
@@ -552,6 +1112,152 @@ int launch_vcycle(const T* r, T* out, int B, int n_levels, const int* hs,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Shared memory a CTA of `kernel` may take beside its static values (the
+// reduction's and the slots, as the compiler lays them out), or 0.
+template <typename K>
+size_t dynamic_max(K kernel) {
+  cudaFuncAttributes fa;
+  if (cudaFuncGetAttributes(&fa, kernel) != cudaSuccess) return 0;
+  return kMaxSmem - fa.sharedSizeBytes;
+}
+
+template <typename K>
+cudaLaunchConfig_t cluster_config(K kernel, int C, int B, size_t bytes,
+                                  cudaStream_t s, cudaLaunchAttribute* attr,
+                                  int* err) {
+  *err = static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes)));
+  if (!*err && C > 8) {
+    *err = static_cast<int>(cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1));
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, B, 1);
+  cfg.blockDim = dim3(kBlockThreads, 1, 1);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = s;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+bool cluster_size_ok(int C) {
+  return C >= 2 && C <= kMaxCluster && (C & (C - 1)) == 0;
+}
+
+template <typename T>
+int launch_vcycle_cluster(const T* r, T* out, int B, int n_levels,
+                          const int* hs, const int* ws, int C, int d, int nu,
+                          int coarse_sweeps, double weight, double c,
+                          void* stream) {
+  if (n_levels < 2 || n_levels > kMaxLevels || !cluster_size_ok(C) ||
+      d < 1 || d > n_levels || hs[d - 1] / C < kRank0Rows) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  ClusterLevels p = {};
+  p.lv.n = n_levels;
+  p.d = d;
+  p.C = C;
+  for (int l = 0; l < n_levels; ++l) {
+    p.lv.h[l] = hs[l];
+    p.lv.w[l] = ws[l];
+  }
+  // Strips of the cut levels sized by the largest, then rank 0's fields.
+  const size_t rows = (hs[d - 1] + C - 1) / C;
+  size_t strip[kMaxLevels];
+  for (int l = 0; l < d; ++l) strip[l] = (rows << (d - 1 - l)) * ws[l];
+  const size_t whole_top = d < n_levels ? static_cast<size_t>(hs[d]) * ws[d]
+                                        : 0;
+  size_t off = strip[0] > whole_top ? strip[0] : whole_top;  // tmp
+  for (int l = 0; l < n_levels; ++l) {
+    const size_t n = l < d ? strip[l] : static_cast<size_t>(hs[l]) * ws[l];
+    p.xoff[l] = static_cast<int>(off);
+    off += n;
+    p.roff[l] = l == 0 ? -1 : static_cast<int>(off);
+    if (l > 0) off += n;
+  }
+  const size_t bytes = off * sizeof(T);
+  if (bytes > dynamic_max(vcycle_cluster<T>)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaLaunchAttribute attr;
+  int err = 0;
+  const cudaLaunchConfig_t cfg =
+      cluster_config(vcycle_cluster<T>, C, B, bytes,
+                     static_cast<cudaStream_t>(stream), &attr, &err);
+  if (err) return err;
+  err = static_cast<int>(cudaLaunchKernelEx(&cfg, vcycle_cluster<T>, r, out,
+                                            p, nu, coarse_sweeps, T(weight),
+                                            T(c)));
+  return err ? err : static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_jacobi_cluster(const T* x, const T* r, T* out, int B, int h,
+                          int w, int sweeps, int C, int project,
+                          double weight, double c, void* stream) {
+  if (!cluster_size_ok(C) || h < C || sweeps < 0 ||
+      (x == nullptr && !project)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t bytes =
+      3 * static_cast<size_t>((h + C - 1) / C) * w * sizeof(T);
+  if (bytes > dynamic_max(jacobi_cluster<T>)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaLaunchAttribute attr;
+  int err = 0;
+  const cudaLaunchConfig_t cfg =
+      cluster_config(jacobi_cluster<T>, C, B, bytes,
+                     static_cast<cudaStream_t>(stream), &attr, &err);
+  if (err) return err;
+  err = static_cast<int>(cudaLaunchKernelEx(&cfg, jacobi_cluster<T>, x, r,
+                                            out, h, w, sweeps, project,
+                                            T(weight), T(c)));
+  return err ? err : static_cast<int>(cudaGetLastError());
+}
+
+// Whether the card schedules at least one cluster of C CTAs of `kernel` at
+// the full shared memory a CTA.
+template <typename K>
+int schedules(K kernel, int C, bool* ok) {
+  cudaLaunchAttribute attr;
+  int err = 0;
+  const cudaLaunchConfig_t cfg = cluster_config(
+      kernel, C, 1, dynamic_max(kernel), nullptr, &attr, &err);
+  int clusters = 0;
+  if (!err) {
+    err = static_cast<int>(
+        cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg));
+  }
+  *ok = !err && clusters >= 1;
+  return err;
+}
+
+// The largest cluster, 16 or 8, that the card schedules for both cluster
+// kernels, or 0.  A refused size is not an error unless 8 is refused too.
+template <typename T>
+int max_cluster(int* out) {
+  *out = 0;
+  for (int C = kMaxCluster; C >= 8; C /= 2) {
+    bool ok_v = false, ok_j = false;
+    int err = schedules(vcycle_cluster<T>, C, &ok_v);
+    if (!err) err = schedules(jacobi_cluster<T>, C, &ok_j);
+    if (ok_v && ok_j) {
+      *out = C;
+      return 0;
+    }
+    cudaGetLastError();  // clear a refusal before the next size
+    if (C == 8 && err) return err;
+  }
+  return 0;
+}
+
 template <typename T>
 int launch_subtract_mean(const T* x, T* out, T* part, int B, long long n,
                          void* stream) {
@@ -631,6 +1337,47 @@ int stencil_vcycle_f64(const double* r, double* out, int B, int n_levels,
   return launch_vcycle<double>(r, out, B, n_levels, hs, ws, nu,
                                coarse_sweeps, weight, c, stream);
 }
+
+// The cluster V-cycle on the n_levels >= 2 levels hs x ws (entry first,
+// entry r in device memory), clusters of C CTAs, the first d levels cut in
+// row strips and the rest whole in rank 0.
+int stencil_vcycle_cluster_f32(const float* r, float* out, int B,
+                               int n_levels, const int* hs, const int* ws,
+                               int C, int d, int nu, int coarse_sweeps,
+                               double weight, double c, void* stream) {
+  return launch_vcycle_cluster<float>(r, out, B, n_levels, hs, ws, C, d, nu,
+                                      coarse_sweeps, weight, c, stream);
+}
+int stencil_vcycle_cluster_f64(const double* r, double* out, int B,
+                               int n_levels, const int* hs, const int* ws,
+                               int C, int d, int nu, int coarse_sweeps,
+                               double weight, double c, void* stream) {
+  return launch_vcycle_cluster<double>(r, out, B, n_levels, hs, ws, C, d, nu,
+                                       coarse_sweeps, weight, c, stream);
+}
+
+// Every sweep in one launch of clusters of C CTAs; project != 0 (x may be
+// NULL) solves a coarsest level: sweeps from zero against r minus its
+// mean, the result minus its mean.
+int stencil_jacobi_cluster_f32(const float* x, const float* r, float* out,
+                               int B, int h, int w, int sweeps, int C,
+                               int project, double weight, double c,
+                               void* stream) {
+  return launch_jacobi_cluster<float>(x, r, out, B, h, w, sweeps, C, project,
+                                      weight, c, stream);
+}
+int stencil_jacobi_cluster_f64(const double* x, const double* r,
+                               double* out, int B, int h, int w, int sweeps,
+                               int C, int project, double weight, double c,
+                               void* stream) {
+  return launch_jacobi_cluster<double>(x, r, out, B, h, w, sweeps, C,
+                                       project, weight, c, stream);
+}
+
+// *out = the largest cluster (16 or 8) the card schedules for the cluster
+// kernels at the full shared memory a CTA, or 0.
+int stencil_max_cluster_f32(int* out) { return max_cluster<float>(out); }
+int stencil_max_cluster_f64(int* out) { return max_cluster<double>(out); }
 
 // part holds B·ceil(n / 4096) values.
 int stencil_subtract_mean_f32(const float* x, float* out, float* part, int B,

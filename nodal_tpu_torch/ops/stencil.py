@@ -22,24 +22,34 @@ takes fields ``[B, h, w]`` (a leading batch) in float32 or float64:
 Each wrapper takes its plain version (``*_plain``) for CPU tensors and, for
 CUDA tensors, launches its kernel or raises: there is no fallback.  Each
 adds one to its ``.launches`` per kernel launch.  The CUDA :func:`vcycle`
-takes any field: the levels above the largest one whose hierarchy fits one
-block's shared memory go through the restriction and prolongation kernels,
-the rest runs in one single-block launch a sample, and a coarsest level too
-large for a block runs through :func:`jacobi_sweeps` with two deterministic
-mean projections.
+takes any field: the levels above the largest one whose hierarchy fits a
+thread-block cluster (:func:`vcycle_cluster_plan`) go through the
+restriction and prolongation kernels, and the rest runs in one cluster
+launch a sample (``vcycle_cluster``: row strips in the shared memory of up
+to 16 CTAs, halos read across the cluster), or in one single-block launch
+where one block holds as many levels.  A coarsest level alone that fits a
+cluster runs its mean-projected sweeps in one ``jacobi_cluster`` launch; one
+too large for a cluster runs through :func:`jacobi_sweeps` with two
+deterministic mean projections.  :func:`jacobi_sweeps` itself runs a field
+past one block but within a cluster in one ``jacobi_cluster`` launch.  A
+batch's clusters are kept small enough to fit the card at once
+(:func:`batch_cluster_cap`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
 
 #: Shared memory one block may use on Hopper (227 KB).
 SMEM_BYTES_MAX = 232_448
-#: Threads of the single-block kernels; ``vcycle_block`` keeps one value a
-#: thread of static shared memory for its reductions (``kBlockThreads``).
+#: Threads of the single-block and cluster kernels; ``vcycle_block`` and
+#: each cluster CTA keep one value a thread of static shared memory for
+#: their reductions (``kBlockThreads``).
 BLOCK_THREADS = 512
 #: Sweeps a tiled Jacobi launch runs (its halo); must match ``kMaxHalo``.
 MAX_HALO = 8
@@ -47,6 +57,26 @@ MAX_HALO = 8
 MAX_BATCH = 65_535
 #: Values each block of the first mean-projection pass sums (``kMeanChunk``).
 MEAN_CHUNK = 4096
+#: Largest thread-block cluster the kernels launch (``kMaxCluster``); a
+#: cluster of 16 is past the portable 8 and needs the non-portable attribute.
+MAX_CLUSTER = 16
+#: A level whose row strips would hold fewer rows than this lives whole in
+#: rank 0 of the cluster (``kRank0Rows``).
+RANK0_ROWS = 4
+#: Values of the cluster cycle's entry strip at most: a level whose strips
+#: hold more costs more in the cluster (16 SMs, barriers, issue-bound
+#: passes) than in the tiled kernels (measured on the H100: 512² f32 at 16
+#: CTAs, 16,384 values a CTA).  A coarsest level alone has no such passes.
+CLUSTER_ENTRY_VALUES = 8192
+#: Static shared values of a cluster kernel beside the reduction's: the two
+#: slots its cluster sums alternate between (``kSlots``).
+CLUSTER_SLOTS = 2
+
+
+def _cluster_static_bytes(itemsize: int) -> int:
+    """A cluster kernel's static shared memory: the reduction's values and
+    the slots, in the 16-byte units the compiler lays them out in."""
+    return -(-(BLOCK_THREADS + CLUSTER_SLOTS) * itemsize // 16) * 16
 
 
 # ------------------------------------------------------------ plain versions
@@ -223,7 +253,15 @@ def jacobi_single_block(h: int, w: int, itemsize: int) -> bool:
 
 def jacobi_sweeps(x: torch.Tensor, r: torch.Tensor, *, weight: float = 1.0,
                   omega: float = 0.8, sweeps: int = 1) -> torch.Tensor:
-    """``sweeps`` weighted-Jacobi sweeps of x against r, [B, h, w]."""
+    """``sweeps`` weighted-Jacobi sweeps of x against r, [B, h, w]: on CUDA
+    in one single-block launch a sample where a block holds the field, else
+    in one cluster launch where a cluster does (``jacobi_cluster``, with
+    clusters no larger than :func:`batch_cluster_cap` allows), else in
+    tiled launches of at most ``MAX_HALO`` sweeps.
+
+    ``jacobi_sweeps.launches`` counts every launch of these kernels,
+    ``jacobi_sweeps.cluster_launches`` those of ``jacobi_cluster`` (the
+    V-cycle's coarsest solve among them)."""
     _check("jacobi_sweeps", x, r=r)
     _same_shape("jacobi_sweeps", x, r=r)
     if sweeps < 0:
@@ -234,9 +272,17 @@ def jacobi_sweeps(x: torch.Tensor, r: torch.Tensor, *, weight: float = 1.0,
     B, h, w = x.shape
     if sweeps == 0 or x.numel() == 0:
         return x.clone()
+    single = jacobi_single_block(h, w, x.element_size())
+    with torch.cuda.device(x.device):
+        cluster = None if single else jacobi_cluster_size(
+            h, w, x.element_size(), _cluster_cap(x))
+        if cluster is not None:
+            out = torch.empty_like(x)
+            _jacobi_cluster(x, r, out, sweeps, cluster, weight, omega)
+            return out
     fn = _launcher("jacobi", x.dtype)
     c = omega / (4.0 * weight)
-    if jacobi_single_block(h, w, x.element_size()):
+    if single:
         chunks, single = [sweeps], 1
     else:
         chunks = [MAX_HALO] * (sweeps // MAX_HALO)
@@ -258,6 +304,7 @@ def jacobi_sweeps(x: torch.Tensor, r: torch.Tensor, *, weight: float = 1.0,
 
 
 jacobi_sweeps.launches = 0
+jacobi_sweeps.cluster_launches = 0
 
 
 def presmooth_restrict(r: torch.Tensor, *, weight: float = 1.0,
@@ -336,6 +383,146 @@ def vcycle_entry(shapes, itemsize: int) -> int | None:
                  <= SMEM_BYTES_MAX), None)
 
 
+def strip_bounds(h: int, cluster: int) -> list[int]:
+    """First rows of the ``cluster`` row strips of an h-row level, and h:
+    rank k owns rows ``[b[k], b[k + 1])``."""
+    return [k * h // cluster for k in range(cluster + 1)]
+
+
+def cluster_levels(tail, cluster: int) -> int:
+    """How many levels of ``tail`` (entry first) a cluster cuts in row
+    strips: those whose every strip keeps ``RANK0_ROWS`` rows.  The levels
+    after them live whole in rank 0."""
+    return next((l for l, (h, _) in enumerate(tail)
+                 if h // cluster < RANK0_ROWS), len(tail))
+
+
+def cluster_strip_rows(tail, cluster: int) -> list[int]:
+    """Rows of the largest strip of each cut level.  The strips are those of
+    the last cut level (:func:`strip_bounds`) doubled level by level, so a
+    coarse strip is the restriction of its fine strip."""
+    d = cluster_levels(tail, cluster)
+    rows = -(-tail[d - 1][0] // cluster)
+    return [rows << (d - 1 - l) for l in range(d)]
+
+
+def vcycle_cluster_bytes(tail, cluster: int, itemsize: int) -> int | None:
+    """Shared memory of each CTA of one cluster V-cycle from ``tail[0]``
+    down, or None when the entry level's strips would be too thin.  Every
+    CTA holds, for its strip of each cut level, x and (below the entry) r,
+    and a scratch field as large as the entry strip or the largest
+    rank-0 level; rank 0's layout (which every CTA mirrors) adds x and r of
+    the levels it holds whole.  A one-level cycle keeps its projected r in
+    a third strip.  Plus the static values (:func:`_cluster_static_bytes`)."""
+    d = cluster_levels(tail, cluster)
+    if d == 0:
+        return None
+    strips = [rows * w for rows, (_, w) in
+              zip(cluster_strip_rows(tail, cluster), tail)]
+    whole = [h * w for h, w in tail[d:]]
+    values = (max(strips[0], whole[0] if whole else 0)
+              + strips[0] * (2 if len(tail) == 1 else 1)
+              + 2 * sum(strips[1:]) + 2 * sum(whole))
+    return values * itemsize + _cluster_static_bytes(itemsize)
+
+
+@dataclass(frozen=True)
+class ClusterPlan:
+    """Where the cluster V-cycle enters ``shapes`` and how it is cut."""
+
+    entry: int    # index of the entry level
+    cluster: int  # CTAs a sample, a power of two
+    rank0: int    # index of the first level whole in rank 0 (len(shapes): none)
+
+
+def vcycle_cluster_plan(shapes, itemsize: int,
+                        max_cluster: int = MAX_CLUSTER) -> ClusterPlan | None:
+    """The largest level whose hierarchy fits a cluster of at most
+    ``max_cluster`` CTAs of ``SMEM_BYTES_MAX`` each, with entry strips of
+    at most ``CLUSTER_ENTRY_VALUES`` values unless it is the coarsest
+    level alone, cut over the largest cluster that holds it (more SMs a
+    sample: a grid solve waits on one sample's cycle); None when not even
+    the coarsest level fits."""
+    for e in range(len(shapes)):
+        tail = shapes[e:]
+        cluster = max_cluster
+        while cluster >= 2:
+            b = vcycle_cluster_bytes(tail, cluster, itemsize)
+            if (b is not None and b <= SMEM_BYTES_MAX
+                    and (len(tail) == 1 or cluster_strip_rows(tail, cluster)[0]
+                         * tail[0][1] <= CLUSTER_ENTRY_VALUES)):
+                return ClusterPlan(e, cluster,
+                                   e + cluster_levels(shapes[e:], cluster))
+            cluster //= 2
+    return None
+
+
+def jacobi_cluster_size(h: int, w: int, itemsize: int,
+                        max_cluster: int = MAX_CLUSTER) -> int | None:
+    """The largest cluster of at most ``max_cluster`` CTAs whose row strips
+    (at least one row each) hold x, its ping-pong copy and r, or None."""
+    cluster = max_cluster
+    while cluster >= 2:
+        nbytes = (3 * -(-h // cluster) * w * itemsize
+                  + _cluster_static_bytes(itemsize))
+        if h >= cluster and nbytes <= SMEM_BYTES_MAX:
+            return cluster
+        cluster //= 2
+    return None
+
+
+@functools.cache
+def max_cluster(dtype: torch.dtype) -> int:
+    """The largest cluster (16 or 8) the card schedules for the cluster
+    kernels at the full shared memory a CTA, as
+    ``cudaOccupancyMaxActiveClusters`` reports it; raises when neither
+    size can be scheduled."""
+    out = ctypes.c_int(0)
+    err = _launcher("max_cluster", dtype)(ctypes.byref(out))
+    _raise_on(err, "cluster occupancy query", (), dtype)
+    if out.value not in (8, 16):
+        raise RuntimeError(f"the card schedules no cluster of 8 or 16 CTAs "
+                           f"at {SMEM_BYTES_MAX} bytes of shared memory "
+                           f"each ({dtype})")
+    return out.value
+
+
+def batch_cluster_cap(batch: int, max_cluster: int, sms: int) -> int:
+    """The largest cluster, a power of two of at most ``max_cluster``,
+    whose ``batch`` clusters fit the card's ``sms`` SMs at once (1: none).
+    A batch that fills the card gains nothing from spreading a sample over
+    more SMs, only barriers and a second wave."""
+    cluster = max_cluster
+    while cluster > 1 and batch * cluster > sms:
+        cluster //= 2
+    return cluster
+
+
+def _cluster_cap(t: torch.Tensor) -> int:
+    """:func:`batch_cluster_cap` for the batch of ``t`` on its card."""
+    return batch_cluster_cap(t.shape[0], max_cluster(t.dtype),
+                             _sm_count(t.device))
+
+
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _jacobi_cluster(x, r, out, sweeps: int, cluster: int, weight: float,
+                    omega: float) -> None:
+    """One ``jacobi_cluster`` launch into ``out``: ``sweeps`` sweeps of x
+    against r, or with x None the coarsest solve, sweeps from zero against
+    r minus its mean and the result minus its mean."""
+    B, h, w = r.shape
+    err = _launcher("jacobi_cluster", r.dtype)(
+        _ptr(x), r.data_ptr(), out.data_ptr(), B, h, w, sweeps, cluster,
+        int(x is None), weight, omega / (4.0 * weight), _stream(r))
+    _raise_on(err, "Jacobi cluster", tuple(r.shape), r.dtype)
+    jacobi_sweeps.launches += 1
+    jacobi_sweeps.cluster_launches += 1
+
+
 def _subtract_mean(x: torch.Tensor) -> torch.Tensor:
     """x minus its per-sample mean, by the two-pass deterministic
     reduction of ``csrc/stencil.cu``."""
@@ -351,14 +538,53 @@ def _subtract_mean(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@dataclass(frozen=True)
+class VcycleRoute:
+    """How :func:`vcycle` runs a field on CUDA: ``stop`` levels above the
+    entry through the tiled kernels, then the cluster cycle (``plan``), the
+    single-block cycle (``block``) or the Jacobi route (neither)."""
+
+    shapes: tuple
+    stop: int
+    plan: ClusterPlan | None
+    block: bool
+    hs: object  # the tail's level shapes as C int arrays
+    ws: object
+
+
+@functools.cache
+def vcycle_route(h: int, w: int, coarsest: int, itemsize: int,
+                 max_cluster: int) -> VcycleRoute:
+    """The cluster cycle where its entry lies above the single-block
+    cycle's, or where the coarsest level would take the Jacobi route;
+    else the single-block cycle, else the Jacobi route."""
+    shapes = tuple(level_shapes(h, w, coarsest))
+    entry = vcycle_entry(shapes, itemsize)
+    plan = None
+    if entry != 0:
+        plan = vcycle_cluster_plan(shapes, itemsize, max_cluster)
+        if plan is not None and entry is not None and plan.entry >= entry:
+            plan = None  # one block holds as many levels
+    if plan is not None:
+        stop = plan.entry
+    else:
+        stop = len(shapes) - 1 if entry is None else entry
+    tail = shapes[stop:]
+    return VcycleRoute(shapes, stop, plan, plan is None and entry is not None,
+                       (ctypes.c_int * len(tail))(*(s[0] for s in tail)),
+                       (ctypes.c_int * len(tail))(*(s[1] for s in tail)))
+
+
 def vcycle(r: torch.Tensor, *, weight: float = 1.0, omega: float = 0.8,
            nu: int = 1, coarse_sweeps: int = 96,
            coarsest: int = 8) -> torch.Tensor:
     """One V(nu, nu) cycle of ``r`` [B, h, w] -> mean-zero [B, h, w].
 
-    ``vcycle.launches`` counts the single-block cycle's launches and the
-    mean projections of a coarsest level that no block holds; the levels
-    above the entry count in their own wrappers.
+    ``vcycle.launches`` counts the cluster and single-block cycles'
+    launches and the mean projections of a coarsest level that no cluster
+    holds, ``vcycle.cluster_launches`` the cluster cycle's alone; the
+    levels above the entry and a coarsest level's sweeps count in their
+    own wrappers.
     """
     _check("vcycle", r)
     if nu < 1 or coarse_sweeps < 0 or coarsest < 1:
@@ -372,10 +598,11 @@ def vcycle(r: torch.Tensor, *, weight: float = 1.0, omega: float = 0.8,
     if r.numel() == 0:
         return torch.empty_like(r)
     kw = {"weight": weight, "omega": omega}
-    shapes = level_shapes(h, w, coarsest)
-    entry = vcycle_entry(shapes, r.element_size())
-    stop = len(shapes) - 1 if entry is None else entry
+    c = omega / (4.0 * weight)
     with torch.cuda.device(r.device):
+        route = vcycle_route(h, w, coarsest, r.element_size(),
+                             _cluster_cap(r))
+        stop, plan, tail = route.stop, route.plan, route.shapes[route.stop:]
         rs, xs = [r], []
         for _ in range(stop):
             x = (None if nu == 1 else
@@ -383,20 +610,29 @@ def vcycle(r: torch.Tensor, *, weight: float = 1.0, omega: float = 0.8,
                                **kw))
             xs.append(x)
             rs.append(presmooth_restrict(rs[-1], x=x, **kw))
-        if entry is None:
+        hs, ws = route.hs, route.ws
+        z = torch.empty_like(rs[-1])
+        if plan is not None and len(tail) == 1:
+            _jacobi_cluster(None, rs[-1], z, coarse_sweeps, plan.cluster,
+                            weight, omega)
+        elif plan is not None:
+            err = _launcher("vcycle_cluster", r.dtype)(
+                rs[-1].data_ptr(), z.data_ptr(), B, len(tail), hs, ws,
+                plan.cluster, plan.rank0 - plan.entry, nu, coarse_sweeps,
+                weight, c, _stream(r))
+            _raise_on(err, "cluster V-cycle", tuple(rs[-1].shape), r.dtype)
+            vcycle.launches += 1
+            vcycle.cluster_launches += 1
+        elif route.block:
+            err = _launcher("vcycle", r.dtype)(
+                rs[-1].data_ptr(), z.data_ptr(), B, len(tail), hs, ws, nu,
+                coarse_sweeps, weight, c, _stream(r))
+            _raise_on(err, "V-cycle", tuple(rs[-1].shape), r.dtype)
+            vcycle.launches += 1
+        else:
             rz = _subtract_mean(rs[-1])
             z = _subtract_mean(jacobi_sweeps(
                 torch.zeros_like(rz), rz, sweeps=coarse_sweeps, **kw))
-        else:
-            tail = shapes[entry:]
-            hs = (ctypes.c_int * len(tail))(*(s[0] for s in tail))
-            ws = (ctypes.c_int * len(tail))(*(s[1] for s in tail))
-            z = torch.empty_like(rs[-1])
-            err = _launcher("vcycle", r.dtype)(
-                rs[-1].data_ptr(), z.data_ptr(), B, len(tail), hs, ws, nu,
-                coarse_sweeps, weight, omega / (4.0 * weight), _stream(r))
-            _raise_on(err, "V-cycle", tuple(rs[-1].shape), r.dtype)
-            vcycle.launches += 1
         for lv in reversed(range(stop)):
             z = prolong_postsmooth(rs[lv], z, x=xs[lv], **kw)
             if nu > 1:
@@ -405,3 +641,4 @@ def vcycle(r: torch.Tensor, *, weight: float = 1.0, omega: float = 0.8,
 
 
 vcycle.launches = 0
+vcycle.cluster_launches = 0

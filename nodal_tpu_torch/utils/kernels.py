@@ -65,6 +65,15 @@ _SIGNATURES = {
     **{name: ([_P] * 2 + [_I] * 2 + [_P] * 2 + [_I] * 2 + [_D] * 2 + [_P],
               _I)
        for name in ("stencil_vcycle_f32", "stencil_vcycle_f64")},
+    **{name: ([_P] * 2 + [_I] * 2 + [_P] * 2 + [_I] * 4 + [_D] * 2 + [_P],
+              _I)
+       for name in ("stencil_vcycle_cluster_f32",
+                    "stencil_vcycle_cluster_f64")},
+    **{name: ([_P] * 3 + [_I] * 6 + [_D] * 2 + [_P], _I)
+       for name in ("stencil_jacobi_cluster_f32",
+                    "stencil_jacobi_cluster_f64")},
+    **{name: ([_P], _I)
+       for name in ("stencil_max_cluster_f32", "stencil_max_cluster_f64")},
     **{name: ([_P] * 3 + [_I, _LL, _P], _I)
        for name in ("stencil_subtract_mean_f32",
                     "stencil_subtract_mean_f64")},

@@ -235,3 +235,321 @@ def test_kernels_are_built_with_the_library():
     assert int(consts["kBlockThreads"]) == stencil.BLOCK_THREADS
     assert int(consts["kMaxSmem"]) == stencil.SMEM_BYTES_MAX
     assert int(consts["kMeanChunk"]) == stencil.MEAN_CHUNK
+
+
+# ------------------------------------------------ thread-block cluster plans
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Many tiny torch ops: one intra-op thread keeps them fast beside the
+    other test workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+# (n, itemsize, max_cluster) -> (entry level, C, first level whole in rank
+# 0 or None).  By hand: 1024² f32 at C = 16 enters at 256²: strips of 16,
+# 8, 4 rows of 256², 128², 64² (a 4,096-value scratch, x of each, r below
+# the entry: 13,440 values with rank 0's 32², 16², 8²) and 2,064 static
+# bytes, 55,824 bytes; 512² would fit (186,896 bytes) but its strips hold
+# 16,384 values, past CLUSTER_ENTRY_VALUES.  1022² f32 enters at its
+# 511² coarsest alone, which takes no cap.
+@pytest.mark.parametrize("n,itemsize,max_cluster,want", [
+    (1024, 4, 16, ((256, 256), 16, (32, 32))),
+    (1024, 4, 8, ((256, 256), 8, (16, 16))),
+    (1024, 8, 16, ((256, 256), 16, (32, 32))),
+    (1024, 8, 8, ((256, 256), 8, (16, 16))),
+    (1000, 4, 16, ((250, 250), 16, None)),
+    (1000, 4, 8, ((250, 250), 8, None)),
+    (1000, 8, 16, ((250, 250), 16, None)),
+    (1000, 8, 8, ((250, 250), 8, None)),
+    (1022, 4, 16, ((511, 511), 16, None)),
+    (1022, 4, 8, None),
+    (1022, 8, 16, None),
+    (1022, 8, 8, None),
+    (4096, 4, 16, ((256, 256), 16, (32, 32))),
+    (4096, 4, 8, ((256, 256), 8, (16, 16))),
+    (4096, 8, 16, ((256, 256), 16, (32, 32))),
+    (4096, 8, 8, ((256, 256), 8, (16, 16))),
+])
+def test_vcycle_cluster_plan(n, itemsize, max_cluster, want):
+    shapes = stencil.level_shapes(n, n)
+    plan = stencil.vcycle_cluster_plan(shapes, itemsize, max_cluster)
+    if want is None:
+        assert plan is None
+        return
+    entry, cluster, rank0 = want
+    assert shapes[plan.entry] == entry and plan.cluster == cluster
+    assert (shapes[plan.rank0] if plan.rank0 < len(shapes) else None) \
+        == rank0
+    tail = shapes[plan.entry:]
+    assert stencil.vcycle_cluster_bytes(tail, cluster, itemsize) \
+        <= stencil.SMEM_BYTES_MAX
+    if len(tail) > 1:
+        assert (stencil.cluster_strip_rows(tail, cluster)[0] * tail[0][1]
+                <= stencil.CLUSTER_ENTRY_VALUES)
+    if plan.entry:  # the level above is refused: the plan from it skips it
+        above = stencil.vcycle_cluster_plan(shapes[plan.entry - 1:],
+                                            itemsize, max_cluster)
+        assert above.entry == 1 and above.cluster == cluster
+    if (n, itemsize, max_cluster) == (1024, 4, 16):
+        assert stencil.vcycle_cluster_bytes(tail, 16, 4) == 55_824
+        assert stencil.vcycle_cluster_bytes(shapes[1:], 16, 4) == 186_896
+        assert stencil.cluster_strip_rows(shapes[1:], 16)[0] * 512 == 16_384
+
+
+def test_vcycle_routes_of_the_grid_paths():
+    """Where the cluster cycle takes over on the grid paths (max_cluster
+    16): above the single-block entry, or where the Jacobi route ran."""
+    def route(n, itemsize):
+        r = stencil.vcycle_route(n, n, 8, itemsize, 16)
+        return (r.shapes[r.stop], r.plan and r.plan.cluster, r.block)
+    assert route(1024, 4) == ((256, 256), 16, False)
+    assert route(1024, 8) == ((256, 256), 16, False)
+    assert route(1000, 8) == ((250, 250), 16, False)  # was the Jacobi route
+    assert route(1022, 4) == ((511, 511), 16, False)  # the one-level route
+    assert route(1022, 8) == ((511, 511), None, False)  # Jacobi route stays
+    assert route(64, 4) == ((64, 64), None, True)  # one block holds it all
+
+
+@pytest.mark.parametrize("batch,want", [
+    (1, 16), (8, 16), (9, 8), (16, 8), (33, 4), (66, 2), (67, 1),
+    (1000, 1)])
+def test_batch_cluster_cap(batch, want):
+    """The H100's 132 SMs: a batch's clusters fit the card at once."""
+    assert stencil.batch_cluster_cap(batch, 16, 132) == want
+    if want == 1:  # no cluster: the single-block cycle or the Jacobi route
+        assert stencil.vcycle_cluster_plan(
+            stencil.level_shapes(1024, 1024), 4, want) is None
+    # 16 probe pairs at 1024² f32: clusters of 8 from 256².
+    r = stencil.vcycle_route(1024, 1024, 8, 4,
+                             stencil.batch_cluster_cap(16, 16, 132))
+    assert r.shapes[r.stop] == (256, 256) and r.plan.cluster == 8
+
+
+@pytest.mark.parametrize("h,w,itemsize,want", [
+    (511, 511, 4, 16), (125, 125, 8, 16), (250, 250, 8, 16),
+    (511, 511, 8, None), (3, 512, 4, 2), (1, 64, 8, None)])
+def test_jacobi_cluster_size(h, w, itemsize, want):
+    assert stencil.jacobi_cluster_size(h, w, itemsize) == want
+
+
+# ------------------------------- an emulation of the cluster kernels' order
+
+def _strips(x, bounds):
+    return [x[:, a:b] for a, b in zip(bounds, bounds[1:])]
+
+
+def _halo(strips, k):
+    """Rows just above and below strip k: its neighbours' edge rows, or its
+    own edge row at the field's edge."""
+    up = strips[k - 1][:, -1:] if k > 0 else strips[k][:, :1]
+    dn = strips[k + 1][:, :1] if k < len(strips) - 1 else strips[k][:, -1:]
+    return up, dn
+
+
+def _strip_lap(strips, k, weight):
+    up, dn = _halo(strips, k)
+    e = torch.nn.functional.pad(torch.cat([up, strips[k], dn], dim=1),
+                                (1, 1), mode="replicate")
+    v = e[:, 1:-1, 1:-1]
+    nbr = e[:, :-2, 1:-1] + e[:, 2:, 1:-1] + e[:, 1:-1, :-2] + e[:, 1:-1, 2:]
+    return weight * (4.0 * v - nbr)
+
+
+def _strip_sweeps(strips, rs, k, weight, c):
+    for _ in range(k):
+        strips = [s + c * (r - _strip_lap(strips, i, weight))
+                  for i, (s, r) in enumerate(zip(strips, rs))]
+    return strips
+
+
+def _from_zero(rs, k, weight, c):
+    if k == 0:
+        return [torch.zeros_like(r) for r in rs]
+    return _strip_sweeps([c * r for r in rs], rs, k - 1, weight, c)
+
+
+def _rank_order_mean(strips, n):
+    total = 0.0
+    for s in strips:  # each rank's own sum, added in rank order
+        total = total + s.sum(dim=(1, 2), keepdim=True)
+    return total / n
+
+
+def _restrict_strips(res):
+    """Each coarse strip from its fine strip and one halo row each side."""
+    out = []
+    for k in range(len(res)):
+        up, dn = _halo(res, k)
+        e = torch.nn.functional.pad(torch.cat([up, res[k], dn], dim=1),
+                                    (1, 1), mode="replicate")
+        cols = (0.75 * (e[:, :, 1:-2:2] + e[:, :, 2:-1:2])
+                + 0.25 * (e[:, :, 0:-3:2] + e[:, :, 3::2]))
+        out.append(0.75 * (cols[:, 1:-2:2] + cols[:, 2:-1:2])
+                   + 0.25 * (cols[:, 0:-3:2] + cols[:, 3::2]))
+    return out
+
+
+def _prolong_strips(zs, fine_bounds, hc):
+    """P z on each fine strip from its coarse strip with one halo row each
+    side (zs: coarse strips, or one whole coarse field held by rank 0)."""
+    out = []
+    for k, (lo, hi) in enumerate(zip(fine_bounds, fine_bounds[1:])):
+        if len(zs) == 1:  # rank 0's whole field
+            zc = zs[0]
+            e = zc[:, [max(lo // 2 - 1, 0)] + list(range(lo // 2, hi // 2))
+                   + [min(hi // 2, hc - 1)]]
+        else:
+            up, dn = _halo(zs, k)
+            e = torch.cat([up, zs[k], dn], dim=1)
+        e = torch.nn.functional.pad(e, (1, 1), mode="replicate")
+        # Fine row 2I (2I + 1) takes coarse rows I and I - 1 (I + 1).
+        mid = e[:, 1:-1]
+        rows = torch.stack([0.75 * mid + 0.25 * e[:, :-2],
+                            0.75 * mid + 0.25 * e[:, 2:]], dim=2)
+        rows = rows.reshape(e.shape[0], -1, e.shape[2])
+        c = rows[:, :, 1:-1]
+        a = torch.stack([0.75 * c + 0.25 * rows[:, :, :-2],
+                         0.75 * c + 0.25 * rows[:, :, 2:]], dim=3)
+        out.append(a.reshape(a.shape[0], a.shape[1], -1))
+    return out
+
+
+def _block_cycle(r, nu, coarse_sweeps, weight, omega):
+    """Rank 0's cycle on its whole levels (no final projection)."""
+    h, w = r.shape[1:]
+    if min(h, w) <= 8 or h % 2 or w % 2:
+        x = stencil.jacobi_sweeps_plain(torch.zeros_like(r),
+                                        r - stencil._mean(r), weight=weight,
+                                        omega=omega, sweeps=coarse_sweeps)
+        return x - stencil._mean(x)
+    x = stencil.jacobi_sweeps_plain(torch.zeros_like(r), r, weight=weight,
+                                    omega=omega, sweeps=nu)
+    x = x + stencil._prolong_bilinear(_block_cycle(
+        stencil._restrict_bilinear(r - stencil._lap(x, weight)), nu,
+        coarse_sweeps, weight, omega))
+    return stencil.jacobi_sweeps_plain(x, r, weight=weight, omega=omega,
+                                       sweeps=nu)
+
+
+def emulate_vcycle_cluster(r, plan_tail, cluster, nu=1, coarse_sweeps=96,
+                           weight=1.0, omega=0.8):
+    """``vcycle_cluster`` (or, for a one-level tail, ``jacobi_cluster``'s
+    coarsest solve) on r at the tail's entry, in the kernel's order:
+    strips, halos, rank 0's whole levels, rank-order mean sums."""
+    c = omega / (4.0 * weight)
+    L = len(plan_tail) - 1
+    d = stencil.cluster_levels(plan_tail, cluster)
+    hl = plan_tail[d - 1][0]
+    bounds = [[b << (d - 1 - l) for b in stencil.strip_bounds(hl, cluster)]
+              for l in range(d)]
+    n = [h * w for h, w in plan_tail]
+    if L == 0:  # the coarsest level alone: jacobi_cluster's projection
+        rs = _strips(r, bounds[0])
+        rz = [s - _rank_order_mean(rs, n[0]) for s in rs]
+        xs = _from_zero(rz, coarse_sweeps, weight, c)
+        return torch.cat([x - _rank_order_mean(xs, n[0]) for x in xs], 1)
+    r_levels, x_levels = [_strips(r, bounds[0])], []
+    last = min(d - 1, L - 1)
+    for l in range(last + 1):
+        x = _from_zero(r_levels[l], nu, weight, c)
+        x_levels.append(x)
+        res = [rr - _strip_lap(x, k, weight)
+               for k, rr in enumerate(r_levels[l])]
+        coarse = _restrict_strips(res)
+        r_levels.append(coarse if l + 1 < d else [torch.cat(coarse, 1)])
+    if L > d - 1:
+        z = [_block_cycle(r_levels[d][0], nu, coarse_sweeps, weight, omega)]
+    else:
+        rz = [s - _rank_order_mean(r_levels[L], n[L]) for s in r_levels[L]]
+        z = _from_zero(rz, coarse_sweeps, weight, c)
+        z = [s - _rank_order_mean(z, n[L]) for s in z]
+    for l in range(last, -1, -1):
+        p = _prolong_strips(z, bounds[l], plan_tail[l + 1][0])
+        z = _strip_sweeps([a + b for a, b in zip(x_levels[l], p)],
+                          r_levels[l], nu, weight, c)
+    return torch.cat([s - _rank_order_mean(z, n[0]) for s in z], 1)
+
+
+def emulate_jacobi_cluster(x, r, sweeps, cluster, weight=1.0, omega=0.8):
+    bounds = stencil.strip_bounds(x.shape[1], cluster)
+    xs = _strip_sweeps(_strips(x, bounds), _strips(r, bounds), sweeps,
+                       weight, omega / (4.0 * weight))
+    return torch.cat(xs, 1)
+
+
+# (h, w, max_cluster): plans with C = 2 (the coarsest cut, no rank-0
+# level), C = 4 (8² in rank 0), C = 16 (32², 16², 8² in rank 0), an odd
+# coarsest cut over two CTAs, and the one-level route.
+_CLUSTER_CASES = [(128, 128, 2), (128, 128, 4), (128, 128, 16),
+                  (96, 40, 2), (63, 63, 8)]
+
+
+def _cluster_case(h, w, max_cluster):
+    shapes = stencil.level_shapes(h, w)
+    if len(shapes) == 1:
+        cluster = max_cluster
+        assert stencil.cluster_levels(shapes, cluster) == 1
+        return shapes, cluster
+    plan = stencil.vcycle_cluster_plan(shapes, 8, max_cluster)
+    assert plan.entry == 0 and plan.cluster == max_cluster
+    return shapes, plan.cluster
+
+
+@pytest.mark.parametrize("h,w,max_cluster", _CLUSTER_CASES)
+def test_vcycle_cluster_emulation_matches_vcycle_plain(h, w, max_cluster):
+    shapes, cluster = _cluster_case(h, w, max_cluster)
+    for nu in (1, 2):
+        (r,) = _fields(h + w + nu, (2, h, w), dtype=np.float64)
+        r = torch.as_tensor(r)
+        want = stencil.vcycle_plain(r, nu=nu)
+        got = emulate_vcycle_cluster(r, shapes, cluster, nu=nu)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                                   atol=1e-12 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("h,w,max_cluster", _CLUSTER_CASES)
+def test_vcycle_cluster_emulation_matches_fused_vcycle(h, w, max_cluster):
+    shapes, cluster = _cluster_case(h, w, max_cluster)
+    (r,) = _fields(3 * h + w, (h, w))
+    want = np.asarray(jps.fused_vcycle(jnp.asarray(r)))
+    got = emulate_vcycle_cluster(_t(r), shapes, cluster)[0].numpy()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("n", [125, 250])
+def test_jacobi_cluster_emulation(n):
+    cluster = stencil.jacobi_cluster_size(n, n, 8)
+    x, r = _fields(n, (n, n), (n, n))
+    for sweeps in (1, 9, 96):
+        want = np.asarray(jps.fused_jacobi(jnp.asarray(x), jnp.asarray(r),
+                                           weight=1.0, omega=0.8,
+                                           sweeps=sweeps))
+        got = emulate_jacobi_cluster(_t(x), _t(r), sweeps, cluster)
+        np.testing.assert_allclose(got[0].numpy(), want, rtol=2e-5,
+                                   atol=2e-6)
+        x64, r64 = (torch.as_tensor(a.astype(np.float64))[None]
+                    for a in (x, r))
+        np.testing.assert_allclose(
+            emulate_jacobi_cluster(x64, r64, sweeps, cluster).numpy(),
+            stencil.jacobi_sweeps_plain(x64, r64, sweeps=sweeps).numpy(),
+            rtol=0, atol=1e-12 * float(x64.abs().max() + r64.abs().max()))
+
+
+def test_cluster_constants_match_the_kernel_source():
+    src = (kernels.CSRC_DIR / "stencil.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
+    assert int(consts["kMaxCluster"]) == stencil.MAX_CLUSTER
+    assert int(consts["kRank0Rows"]) == stencil.RANK0_ROWS
+    assert int(consts["kSlots"]) == stencil.CLUSTER_SLOTS
+    for name, n_args in (("vcycle_cluster", 13), ("jacobi_cluster", 12),
+                         ("max_cluster", 1)):
+        for suffix in ("f32", "f64"):
+            full = f"stencil_{name}_{suffix}"
+            argtypes, _ = kernels._SIGNATURES[full]
+            assert len(argtypes) == n_args, full
+            assert f"int {full}(" in src
