@@ -34,14 +34,17 @@ configuration and the SM clock; and, where every check passed, the
 ``auto`` solves/s of the mesh, midsize and branch paths (``SBAND_PATHS``).
 
 With ``--grid``, the multigrid V-cycle and the grid solve instead: the
-``vcycle`` wrapper's event time and its device time by kernel name
-(``kernel_split``) at the 1024², 1022² and 1000² finest shapes, f32 and
-f64; ``jacobi_sweeps`` at 96 sweeps on the coarsest shapes
-(``chip_smoke.CLUSTER_JACOBI_SHAPES``); kernels a solve (by trace) and the
-host-clock latency (``host_median_ms``) of the ``GRID_COMPARE_RUNS`` grids
-and the 16 probe pairs; and, where the ROOT has cluster kernels, the
-cycle at 1024² f32 and its grid solve with clusters of at most 8 against
-at most 16.
+transfer kernels (``presmooth_restrict``, ``prolong_postsmooth``, each
+with and without a given x) by kernel name from a trace (``kernel_split``)
+at ``TRANSFER_SHAPES``, f32 and f64, beside their bounds
+(``chip_smoke.stencil_bound``); the ``vcycle`` wrapper's event time and
+its device time by kernel name at the 1024², 1022² and 1000² finest
+shapes, f32 and f64; ``jacobi_sweeps`` at 96 sweeps on the coarsest shapes
+(``chip_smoke.CLUSTER_JACOBI_SHAPES``); kernels and device ms a solve (by
+trace) and the host-clock latency (``host_median_ms``) of the
+``GRID_COMPARE_RUNS`` grids and the 16 probe pairs; and, where the ROOT
+has cluster kernels, the cycle at 1024² f32 and its grid solve with
+clusters of at most 8 against at most 16.
 
 Prints the card's name and power limit, then one JSON line a measurement
 tagged with its ROOT; with ``--mma`` first the FP64 ``mma.sync`` shapes'
@@ -91,8 +94,11 @@ SBAND_PATHS = [
 ]
 
 # The grid solves --grid times, by their chip_smoke.GRID_RUNS labels.
-GRID_COMPARE_RUNS = ("grid1024_f32", "grid1024_f64", "grid1000_f64",
-                     "grid1022_f32")
+GRID_COMPARE_RUNS = ("grid1024_f32", "grid1024_f64", "grid4096_f32",
+                     "grid1000_f64", "grid1022_f32")
+# (B, h, w) the transfer kernels are traced at: the 1024² grid's finest
+# level, the 16-pair batch's and the 4096² grid's.
+TRANSFER_SHAPES = [(1, 1024, 1024), (16, 1024, 1024), (1, 4096, 4096)]
 
 MMA_SRC = r"""
 #include <cuda_runtime.h>
@@ -278,11 +284,44 @@ def grid_solve_times(cs, tag, label, solve) -> None:
           "median_ms": ms})
 
 
+def max_cluster(st, dtype) -> int:
+    """The ROOT's ``max_cluster`` on the current card: per card and dtype,
+    or, in a checkout from before the per-card cache, per dtype."""
+    try:
+        return st.max_cluster(torch.cuda.current_device(), dtype)
+    except TypeError:
+        return st.max_cluster(dtype)
+
+
+def measure_transfers(cs, tag, st, gen) -> None:
+    """Both transfer kernels, with and without x, by kernel name."""
+    for B, h, w in TRANSFER_SHAPES:
+        for dtype in (torch.float32, torch.float64):
+            rnd = lambda *shape: torch.randn(  # noqa: E731
+                *shape, generator=gen, device="cuda", dtype=dtype)
+            r, x, zc = rnd(B, h, w), rnd(B, h, w), rnd(B, h // 2, w // 2)
+            calls = {
+                "presmooth_restrict": lambda: st.presmooth_restrict(r),
+                "presmooth_restrict/x":
+                    lambda: st.presmooth_restrict(r, x=x),
+                "prolong_postsmooth": lambda: st.prolong_postsmooth(r, zc),
+                "prolong_postsmooth/x":
+                    lambda: st.prolong_postsmooth(r, zc, x=x)}
+            for name, call in calls.items():
+                emit({**tag, "phase": "transfer", "kernel": name, "B": B,
+                      "h": h, "w": w, "dtype": str(dtype),
+                      **cs.kernel_split(call),
+                      **cs.stencil_bound(name, B, h, w, dtype)})
+            del r, x, zc
+            torch.cuda.empty_cache()
+
+
 def measure_grid(root: Path) -> None:
     cs, tag = load_root(root)
     from nodal_tpu_torch.ops import grid, stencil as st
 
     gen = torch.Generator(device="cuda").manual_seed(2)
+    measure_transfers(cs, tag, st, gen)
     for n in (1024, 1022, 1000):
         for dtype in (torch.float32, torch.float64):
             r = torch.randn(1, n, n, generator=gen, device="cuda",
@@ -317,8 +356,8 @@ def measure_grid(root: Path) -> None:
     r = torch.randn(1, 1024, 1024, generator=gen, device="cuda")
     a, b = cs.knight_probes(1024)
     for mc in (16, 8):
-        st.max_cluster = lambda dtype, mc=mc: min(mc, queried(dtype))
-        route = st.vcycle_route(1024, 1024, 8, 4, st.max_cluster(r.dtype))
+        st.max_cluster = lambda *args, mc=mc: min(mc, queried(*args))
+        route = st.vcycle_route(1024, 1024, 8, 4, max_cluster(st, r.dtype))
         emit({**tag, "phase": "vcycle_max_cluster", "max_cluster": mc,
               "entry": list(route.shapes[route.stop]),
               "cluster": route.plan and route.plan.cluster,

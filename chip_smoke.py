@@ -37,12 +37,14 @@ resistance of the 1024×1024 grid of unit resistors (f32 and f64), of the
 125² and 511², run in a thread-block cluster, or in f64 at 511² take the
 multi-launch Jacobi route) and of 16 probe pairs at once, each held against
 the same solve with the plain cycle on the card, then a profile of the
-1024² solve.  The cluster kernels (``vcycle_cluster``, ``jacobi_cluster``)
-are also read by kernel name from traces at the grid paths' shapes.  The
+1024² solve.  The transfer kernels also run a batch past 2³¹ values,
+its last sample bit for bit against a launch on that sample alone.  The
+cluster kernels (``vcycle_cluster``, ``jacobi_cluster``) are also read by
+kernel name from traces at the grid paths' shapes.  The
 fused-CG path (``grid_solve(fused_cg=True)``): its two kernels against
-their plain versions, the 1024² (f32, f64), 4096² and 16-pair solves
-through it, each held against the unfused kernel solve, and a profile of
-its 1024² solve.
+their plain versions, every grid solve above and the 16 pairs through it,
+each held against the unfused kernel solve, and a profile of its 1024²
+solve.
 Last, the adjoint: ``backward()`` through each tier's solver on the card
 against the same solver's gradient on the CPU and a dense f64 autograd
 oracle, with the tier's kernel launched in the backward pass.
@@ -167,12 +169,16 @@ LU_TIME_SHAPES = [(GENERAL_BATCH, 1024, 1), (GENERAL_BATCH, 1024, 3),
 # grid, odd dimensions, the levels of the main paths, a batch of 16 and the
 # 4096² grid; 125², 250², 511² and 16 × 512² are the cluster kernels'
 # shapes (one-level coarsest routes, clusters of 16, a batch of clusters).
-# presmooth_restrict and prolong_postsmooth take even h, w.
+# presmooth_restrict and prolong_postsmooth take even h, w; 1022² f32 takes
+# their narrow load path (a row pitch of 4088 bytes), and (3, 1030, 262)
+# puts their strip and segment seams off powers of two (a partial second
+# strip, 86 segments of 6 coarse rows, the last of 5; the narrow path in
+# f32).
 STENCIL_SHAPES = [(1, 2, 2), (1, 3, 5), (1, 8, 8), (1, 64, 64),
                   (1, 125, 125), (1, 250, 250), (1, 511, 511),
                   (1, 512, 512), (16, 512, 512), (1, 1000, 1000),
                   (1, 1022, 1022), (1, 1024, 1024), (16, 1024, 1024),
-                  (1, 4096, 4096)]
+                  (1, 4096, 4096), (3, 1030, 262)]
 JACOBI_SWEEPS = (1, 4, 9, 96)
 # Kernel and plain version run the same operations in the same order but
 # for fused multiply-adds, the reductions' order and (vcycle) where the
@@ -181,6 +187,9 @@ JACOBI_SWEEPS = (1, 4, 9, 96)
 STENCIL_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 # f32: three fields of 8.7 GB, past 2³¹ values.
 STENCIL_HUGE = (130, 4096, 4096)
+# Fields of this shape one value past a 16-byte boundary: the transfers'
+# narrow path in both dtypes.
+MISALIGNED_SHAPE = (2, 1024, 1024)
 STENCIL_TIME_SHAPES = [(1, 1024, 1024), (1, 4096, 4096)]
 TIME_JACOBI_SWEEPS = 8      # one full tiled launch
 # Row 7 where the grid paths' coarsest levels run it: 96 sweeps at 511²
@@ -207,8 +216,6 @@ GRID_RUNS = [("grid1024_f32", 1024, torch.float32, 1e-6),
              ("grid1022_f32", 1022, torch.float32, 1e-6),
              ("grid1022_f64", 1022, torch.float64, 1e-10)]
 GRID_PAIRS = 16
-# The fused path runs on these GRID_RUNS and the 16 pairs.
-FUSED_GRID_RUNS = ("grid1024_f32", "grid1024_f64", "grid4096_f32")
 GRID_PROFILE_SOLVES = 3     # traced 1024² solves, after a lead-in solve
 GRID_PROFILE_TRIES = 3      # profiler sessions before a trace must be whole
 KNIGHT_R = 4 / math.pi - 0.5  # the infinite grid's knight's-move resistance
@@ -1092,11 +1099,47 @@ def branch_check(circuit, xs, kernel):
             "e1_current_sample0": float(current[0])}
 
 
-def phase_profile(label, rows, batch):
+# The batch paths' kernels of the repo in a trace, by the prefix of their
+# names, for each family of wrappers.
+BATCH_KERNEL_PREFIXES = {"pcr": "pcr_", "sband": "sband_",
+                         "block_thomas": "block_thomas_",
+                         "block_lu": "block_lu_"}
+
+
+def batch_kernels(ops) -> dict:
+    """The kernels each family launched since the counts of its wrappers
+    in ``ops`` (the pcr, sband, block_thomas and lu modules) were
+    reset.  PCR and the scalar band launch one a counted call.  The block
+    Thomas counts host loops, each ``launch_plan``'s launches; the blocked
+    LU counts factorizations, ``factor_launches`` each, and solves, 4q − 2
+    products each for q panels (``dense_tile.cuh:lu_solve``: two a panel
+    forward but the last, two a panel backward), at their last calls'
+    shapes, which every call of one path shares."""
+    pcr, sband, block_thomas, lu = ops
+    bt, solve = block_thomas.band_solve_multi, lu.lu_solve_factored
+    out = {"pcr": pcr.pcr_solve.launches,
+           "sband": sband.sband_solve_multi.launches,
+           "block_thomas": 0, "block_lu": 0}
+    if bt.launches:
+        B, nb, kb, r = bt.last_shape
+        out["block_thomas"] = bt.launches * block_thomas.launch_plan(
+            B, nb, kb, min(r, block_thomas.MAX_R), 4).launches
+    if lu.lu_factor.launches or solve.launches:
+        n = solve.last_shape[1]
+        out["block_lu"] = (lu.lu_factor.launches * lu.factor_launches(n)
+                           + solve.launches * (4 * (n // lu.BLOCK) - 2))
+    return out
+
+
+def phase_profile(label, rows, batch, ops):
     """Device kernel time of one ``refine="auto"`` call by kind, from a
-    ``torch.profiler`` trace of 3 calls after 2 warm-up calls, and the
-    device's idle share of the traced window."""
-    from torch.profiler import ProfilerActivity, profile
+    ``torch.profiler`` trace of 3 calls (each in its own span) after 2
+    warm-up calls, and the device's idle share of the traced window.  A
+    trace is read only when it is whole: in each call, the kernels of each
+    family of the repo's wrappers, by name, equal what the wrappers
+    launched (:func:`batch_kernels`).  A trace that is not whole is
+    reported and taken again, up to ``GRID_PROFILE_TRIES`` times."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     from nodal_tpu_torch import Circuit, Netlist
 
@@ -1107,17 +1150,44 @@ def phase_profile(label, rows, batch):
         solver(params)
     torch.cuda.synchronize()
     calls = 3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            solver(params)
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = Path(tmp) / "trace.json"
-        prof.export_chrome_trace(str(path))
-        events = json.loads(path.read_text())["traceEvents"]
-    kernels = [e for e in events if e.get("cat") == "kernel"]
-    check(len(kernels) > 0, f"profile {label}: no kernel in the trace")
+    labels = [f"{label}_call_{k}" for k in range(calls)]
+    pcr, sband, block_thomas, lu = ops
+    wrappers = (pcr.pcr_solve, sband.sband_solve_multi,
+                block_thomas.band_solve_multi, lu.lu_factor,
+                lu.lu_solve_factored)
+    dropped = []
+    for _ in range(GRID_PROFILE_TRIES):
+        launched = {}
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for name in labels:
+                for w in wrappers:
+                    w.launches = 0
+                with record_function(name):
+                    solver(params)
+                launched[name] = batch_kernels(ops)
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = Path(tmp) / "trace.json"
+            prof.export_chrome_trace(str(path))
+            events = json.loads(path.read_text())["traceEvents"]
+        spans, _ = split_trace(events, labels)
+        why = None
+        for name in labels:
+            traced = {f: sum(kernel_name(e.get("name", "")).startswith(pre)
+                             for e in spans[name])
+                      for f, pre in BATCH_KERNEL_PREFIXES.items()}
+            if not spans[name] or traced != launched[name]:
+                why = (f"{name} traced {traced} kernels of the repo, the "
+                       f"wrappers launched {launched[name]}")
+                break
+        if why is None:
+            break
+        dropped.append(why)
+        emit({"phase": "profile", "path": label, "trace_not_whole": why})
+    check(why is None, f"profile {label}: no whole trace in "
+          f"{GRID_PROFILE_TRIES} tries: {dropped}")
+    kernels = [e for name in labels for e in spans[name]]
     kinds = {"block_thomas": ("block_thomas",), "sband": ("sband",),
              "pcr": ("pcr",), "block_lu": ("block_lu",),
              "gathers": ("index", "gather", "scatter"),
@@ -1134,7 +1204,9 @@ def phase_profile(label, rows, batch):
     window = (max(e["ts"] + e["dur"] for e in kernels)
               - min(e["ts"] for e in kernels)) / 1e3
     emit({"phase": "profile", "path": label, "refine": "auto", "B": batch,
-          "calls": calls, "device_ms_per_call": busy / calls,
+          "calls": calls, "whole": True, "traces_not_whole": len(dropped),
+          "repo_kernels_per_call": launched[labels[0]],
+          "device_ms_per_call": busy / calls,
           "kernels_per_call": len(kernels) / calls,
           "ms_per_call_by_kind": {k: v / calls for k, v in
                                   sorted(by_kind.items(),
@@ -1223,21 +1295,56 @@ def stencil_bound(name: str, B: int, h: int, w: int, dtype,
                   sweeps: int = TIME_JACOBI_SWEEPS) -> dict:
     """Bytes (inputs read once, output written once) and operations of one
     stencil call: a sweep is 9 flops a cell, a restriction ~6 a fine cell,
-    a prolongation 8; the V-cycle's bytes are its input and output."""
+    a prolongation 8; the V-cycle's bytes are its input and output.  The
+    ``/x`` transfers also read the given x."""
     n, item = B * h * w, torch.finfo(dtype).bits // 8
     values, flops = {
         "jacobi_sweeps": (3 * n, 9 * sweeps * n),
         "presmooth_restrict": (1.25 * n, 15 * n),
+        "presmooth_restrict/x": (2.25 * n, 15 * n),
         "prolong_postsmooth": (2.25 * n, 17 * n),
+        "prolong_postsmooth/x": (3.25 * n, 17 * n),
         "vcycle": (2 * n, 4 / 3 * 50 * n),
     }[name]
     return bound_ms(flops, values * item, dtype)
 
 
+def check_stencil_case(name, kernel, plain, shape, weight, dtype,
+                       worst) -> None:
+    """One stencil kernel call against its plain version: dtype, shape,
+    finite values, the difference relative to max|plain| within
+    ``STENCIL_RTOL`` (and a mean-zero V-cycle); the worst difference of
+    each kernel and dtype is kept in ``worst``."""
+    got = kernel()
+    torch.cuda.synchronize()
+    want = plain()
+    check(got.dtype == dtype and got.shape == want.shape,
+          f"{name} returned {got.dtype} {tuple(got.shape)}")
+    check(bool(torch.isfinite(got).all()),
+          f"{name} non-finite at {shape} {dtype}")
+    scale = float(want.abs().max()) or 1.0
+    err = float((got - want).abs().max()) / scale
+    B, h, w = shape
+    emit({"phase": "kernel_check", "kernel": name, "B": B, "h": h, "w": w,
+          "weight": weight, "dtype": str(dtype), "max_rel_diff": err,
+          "tol": STENCIL_RTOL[dtype]})
+    check(err <= STENCIL_RTOL[dtype],
+          f"{name} differs from its plain version by {err:.3e} at {shape} "
+          f"weight {weight} {dtype}")
+    base = name.split("/")[0]
+    worst[(base, dtype)] = max(worst.get((base, dtype), 0.0), err)
+    if name.startswith("vcycle"):
+        mean = float(got.mean(dim=(1, 2)).abs().max()) / scale
+        check(mean <= STENCIL_RTOL[dtype],
+              f"vcycle output mean {mean:.3e} at {shape}")
+
+
 def phase_stencil_kernels(st):
     """Each stencil kernel against its plain version on the same CUDA
-    tensors at every shape class in f32 and f64, a Jacobi batch past 2³¹
-    values, then kernel, plain version and bound timed."""
+    tensors at every shape class in f32 and f64 (the transfers also on
+    misaligned fields), a batch past 2³¹ values through the Jacobi and
+    both transfers (with and without x), then kernel, plain version and
+    bound timed."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     worst = {}
     shapes = [(s, 1.0) for s in STENCIL_SHAPES] + [((1, 512, 512), 2.0)]
@@ -1245,45 +1352,58 @@ def phase_stencil_kernels(st):
         for (B, h, w), weight in shapes:
             for name, kernel, plain in stencil_cases(st, B, h, w, dtype, gen,
                                                      weight):
-                got = kernel()
-                torch.cuda.synchronize()
-                want = plain()
-                check(got.dtype == dtype and got.shape == want.shape,
-                      f"{name} returned {got.dtype} {tuple(got.shape)}")
-                check(bool(torch.isfinite(got).all()),
-                      f"{name} non-finite at {(B, h, w)} {dtype}")
-                scale = float(want.abs().max()) or 1.0
-                err = float((got - want).abs().max()) / scale
-                emit({"phase": "kernel_check", "kernel": name, "B": B,
-                      "h": h, "w": w, "weight": weight, "dtype": str(dtype),
-                      "max_rel_diff": err, "tol": STENCIL_RTOL[dtype]})
-                check(err <= STENCIL_RTOL[dtype],
-                      f"{name} differs from its plain version by {err:.3e} "
-                      f"at {(B, h, w)} weight {weight} {dtype}")
-                base = name.split("/")[0]
-                worst[(base, dtype)] = max(worst.get((base, dtype), 0.0),
-                                           err)
-                if name.startswith("vcycle"):
-                    mean = float(got.mean(dim=(1, 2)).abs().max()) / scale
-                    check(mean <= STENCIL_RTOL[dtype],
-                          f"vcycle output mean {mean:.3e} at {(B, h, w)}")
-                del got, want
+                check_stencil_case(name, kernel, plain, (B, h, w), weight,
+                                   dtype, worst)
             torch.cuda.empty_cache()
+        # Fields one value past a 16-byte boundary take the transfers'
+        # narrow path whatever their pitch (f64, whose even widths always
+        # have a 16-byte pitch, takes it only so).
+        B, h, w = MISALIGNED_SHAPE
+        r, x = (torch.randn(B * h * w + 1, generator=gen, device="cuda",
+                            dtype=dtype)[1:].view(B, h, w) for _ in range(2))
+        zc = torch.randn(B, h // 2, w // 2, generator=gen, device="cuda",
+                         dtype=dtype)
+        check(not st._strip_plan(r, x).wide,
+              f"a misaligned {dtype} field took the wide path")
+        for xs, tag in ((None, ""), (x, "/x")):
+            check_stencil_case(
+                "presmooth_restrict" + tag + "/misaligned",
+                functools.partial(st.presmooth_restrict, r, x=xs),
+                functools.partial(st.presmooth_restrict_plain, r, x=xs),
+                (B, h, w), 1.0, dtype, worst)
+            check_stencil_case(
+                "prolong_postsmooth" + tag + "/misaligned",
+                functools.partial(st.prolong_postsmooth, r, zc, x=xs),
+                functools.partial(st.prolong_postsmooth_plain, r, zc, x=xs),
+                (B, h, w), 1.0, dtype, worst)
+        del r, x, zc
     # 64-bit offsets: the last sample of a batch past 2³¹ values against a
     # launch on that sample alone, bit for bit.
     B, h, w = STENCIL_HUGE
     x = torch.randn(B, h, w, generator=gen, device="cuda")
     r = torch.randn(B, h, w, generator=gen, device="cuda")
+    x1, r1 = x[-1:].clone(), r[-1:].clone()
     got = st.jacobi_sweeps(x, r, sweeps=4)[-1:].clone()
-    want = st.jacobi_sweeps(x[-1:].clone(), r[-1:].clone(), sweeps=4)
+    same = {"jacobi_sweeps/4": torch.equal(
+        got, st.jacobi_sweeps(x1, r1, sweeps=4))}
+    del got
+    zc = torch.randn(B, h // 2, w // 2, generator=gen, device="cuda")
+    z1 = zc[-1:].clone()
+    for xs, xs1, tag in ((None, None, ""), (x, x1, "/x")):
+        got = st.presmooth_restrict(r, x=xs)[-1:].clone()
+        same["presmooth_restrict" + tag] = torch.equal(
+            got, st.presmooth_restrict(r1, x=xs1))
+        got = st.prolong_postsmooth(r, zc, x=xs)[-1:].clone()
+        same["prolong_postsmooth" + tag] = torch.equal(
+            got, st.prolong_postsmooth(r1, z1, x=xs1))
+        del got
     torch.cuda.synchronize()
-    same = bool(torch.equal(got, want))
-    emit({"phase": "kernel_check", "kernel": "jacobi_sweeps/4", "B": B,
-          "h": h, "w": w, "dtype": str(torch.float32), "values": B * h * w,
+    emit({"phase": "kernel_check", "kernel": "stencil", "B": B, "h": h,
+          "w": w, "dtype": str(torch.float32), "values": B * h * w,
           "compared": "last sample vs alone", "bit_equal": same})
-    check(same, "jacobi_sweeps past 2^31 values differs from the sample "
-          "alone")
-    del x, r, got, want
+    check(all(same.values()), f"stencil kernels past 2^31 values differ "
+          f"from the sample alone: {same}")
+    del x, r, zc, x1, r1, z1
     torch.cuda.empty_cache()
 
     timing = {}
@@ -1338,9 +1458,10 @@ def phase_cluster_kernels(st):
     entries: ``vcycle_cluster`` alone at ``CLUSTER_VCYCLE_ENTRY`` and
     ``jacobi_cluster`` alone at 511² f32, each against its plain version
     and its bound."""
+    card = torch.cuda.current_device()
     emit({"phase": "cluster", "max_cluster": {
-        str(dt): st.max_cluster(dt) for dt in (torch.float32,
-                                               torch.float64)}})
+        str(dt): st.max_cluster(card, dt) for dt in (torch.float32,
+                                                     torch.float64)}})
     gen = torch.Generator(device="cuda").manual_seed(7)
     rnd = lambda *shape, dtype: torch.randn(  # noqa: E731
         *shape, generator=gen, device="cuda", dtype=dtype)
@@ -1348,7 +1469,7 @@ def phase_cluster_kernels(st):
         for dtype in (torch.float32, torch.float64):
             r = rnd(1, n, n, dtype=dtype)
             route = st.vcycle_route(n, n, 8, r.element_size(),
-                                    st.max_cluster(dtype))
+                                    st.max_cluster(card, dtype))
             emit({"phase": "kernel_trace", "wrapper": "vcycle", "n": n,
                   "dtype": str(dtype),
                   "entry": list(route.shapes[route.stop]),
@@ -1369,7 +1490,7 @@ def phase_cluster_kernels(st):
               "sweeps": COARSE_SWEEPS, "B": B, "h": h, "w": w,
               "dtype": str(dtype),
               "cluster": st.jacobi_cluster_size(h, w, x.element_size(),
-                                                st.max_cluster(dtype)),
+                                                st.max_cluster(card, dtype)),
               **t, **kernel_split(kernel)})
     B, h, w = CLUSTER_VCYCLE_ENTRY
     r = rnd(B, h, w, dtype=torch.float32)
@@ -1642,8 +1763,8 @@ def phase_grid(grid, st, fc):
     """The grid solves of ``GRID_RUNS`` and the 16-pair batch: launches of
     each stencil wrapper over exactly one solve, answers against the plain
     cycle on the card, f32 against f64, R against the infinite grid, and
-    one call's latency; then the fused path on ``FUSED_GRID_RUNS`` and the
-    16 pairs (:func:`fused_grid_run`).  Returns the stencil and the fused
+    one call's latency; then the fused path on every grid and the 16 pairs
+    (:func:`fused_grid_run`).  Returns the stencil and the fused
     wrappers' launches, each summed over its paths."""
     launches = dict.fromkeys(grid_launch_counts(st), 0)
     fused = dict.fromkeys(fused_launch_counts(fc), 0)
@@ -1682,16 +1803,15 @@ def phase_grid(grid, st, fc):
         emit({"phase": "grid_time", "path": label, "ms_reps": times,
               "median_ms": ms, "ms_per_iteration": ms / its})
         results[label] = {"R": R, "iterations": its, "ms": ms}
-        if label in FUSED_GRID_RUNS:
-            rhs = torch.zeros(n, n, dtype=dtype, device="cuda")
-            rhs[a] += 1.0
-            rhs[b] -= 1.0
-            counts = fused_grid_run(grid, fc, label, n, rhs, dtype, tol,
-                                    lambda x: x[a] - x[b], R, its)
-            for k, v in counts.items():
-                fused[k] += v
-            del rhs
-            torch.cuda.empty_cache()
+        rhs = torch.zeros(n, n, dtype=dtype, device="cuda")
+        rhs[a] += 1.0
+        rhs[b] -= 1.0
+        counts = fused_grid_run(grid, fc, label, n, rhs, dtype, tol,
+                                lambda x: x[a] - x[b], R, its)
+        for k, v in counts.items():
+            fused[k] += v
+        del rhs
+        torch.cuda.empty_cache()
     check(abs(results["grid1024_f32"]["R"] - results["grid1024_f64"]["R"])
           <= 1e-5, "grid 1024²: R in f32 and f64 differ by more than 1e-5")
     check(abs(results["grid1024_f64"]["R"] - KNIGHT_R) <= 5e-3,
@@ -1740,8 +1860,8 @@ def phase_grid(grid, st, fc):
 # launch with ``subtract_mean``).
 GRID_TRACE_NAMES = {
     "jacobi_sweeps": ("jacobi_tiled", "jacobi_block", "jacobi_cluster"),
-    "presmooth_restrict": ("presmooth_restrict_tiled",),
-    "prolong_postsmooth": ("prolong_postsmooth_tiled",),
+    "presmooth_restrict": ("presmooth_restrict_strip",),
+    "prolong_postsmooth": ("prolong_postsmooth_strip",),
     "vcycle": ("vcycle_block", "subtract_mean", "vcycle_cluster"),
     "vcycle_cluster": ("vcycle_cluster",),
     "jacobi_cluster": ("jacobi_cluster",),
@@ -2160,10 +2280,12 @@ def main() -> None:
     phase_band_accuracy("lattice", lattice_rows(20, 10, 10), GENERAL_BATCH)
     phase_band_accuracy("widemesh", grid_circuit_rows(100, 100),
                         MIDSIZE_BATCH)
-    phase_profile("mesh", mesh_rows(MESH_NODES), BATCH)
-    phase_profile("midsize5000", mesh_rows(MIDSIZE_NODES[0]), MIDSIZE_BATCH)
-    phase_profile("lattice", lattice_rows(20, 10, 10), GENERAL_BATCH)
-    phase_profile("randnet", randnet_rows(), GENERAL_BATCH)
+    ops = (pcr, sband, block_thomas, lu)
+    phase_profile("mesh", mesh_rows(MESH_NODES), BATCH, ops)
+    phase_profile("midsize5000", mesh_rows(MIDSIZE_NODES[0]), MIDSIZE_BATCH,
+                  ops)
+    phase_profile("lattice", lattice_rows(20, 10, 10), GENERAL_BATCH, ops)
+    phase_profile("randnet", randnet_rows(), GENERAL_BATCH, ops)
     clock("sweep accuracy and profiles")
     st_worst, st_timing = phase_stencil_kernels(stencil)
     emit({"phase": "kernel_check_worst",

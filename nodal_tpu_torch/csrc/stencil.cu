@@ -3,8 +3,8 @@
 // Replace the Pallas TPU kernels of nodal_tpu/ops/pallas_stencil.py:
 //   * jacobi_tiled / jacobi_block / jacobi_cluster
 //                                   <- fused_jacobi (:137)
-//   * presmooth_restrict_tiled      <- fused_presmooth_restrict (:211)
-//   * prolong_postsmooth_tiled      <- fused_prolong_postsmooth (:286)
+//   * presmooth_restrict_strip      <- fused_presmooth_restrict (:211)
+//   * prolong_postsmooth_strip      <- fused_prolong_postsmooth (:286)
 //   * vcycle_cluster / vcycle_block (+ jacobi_cluster for a coarsest level
 //     alone, mean_partials / subtract_mean for one no cluster holds)
 //                                   <- fused_vcycle (:380)
@@ -15,10 +15,10 @@
 // cell-centred bilinear ones (1-D weights 3/4, 1/4; edge-replicated
 // prolongation, restriction = its transpose with the edge folds).
 //
-// Design.  The tiled kernels cut a field into 2-D output tiles; a block
-// loads its tile plus a halo into shared memory.  Outside the field the
-// halo is the field's mirror image (x[-1] = x[0], repeated with period 2h
-// for halos wider than the field), which is exactly the edge-replicate
+// Design.  The tiled Jacobi kernels cut a field into 2-D output tiles; a
+// block loads its tile plus a halo into shared memory.  Outside the field
+// the halo is the field's mirror image (x[-1] = x[0], repeated with period
+// 2h for halos wider than the field), which is exactly the edge-replicate
 // boundary: the stencil commutes with the reflections, so mirrored ghosts
 // stay consistent through any number of sweeps and the tiles are exact,
 // not approximate.
@@ -28,14 +28,24 @@
 //     wrapper loops launches for more sweeps.  Fields whose x, its
 //     ping-pong copy and r fit one block's shared memory run all sweeps in
 //     one single-block launch per sample (jacobi_block).
-//   * Restriction: a 16 x 16 coarse tile needs fine rows 2I-1 .. 2I+2 of
-//     the residual, and the residual one more cell of x: a 36 x 36 window.
-//     With the mirrored halo the restriction's edge folds are the ordinary
-//     quarter weights on ghost cells.  Direct four-tap sums on each axis,
-//     no matrix products.
-//   * Prolongation + post-smooth: a 32 x 32 fine tile forms x = c r (or the
-//     given pre-smoothed x) + P zc on its 34 x 34 window, then writes one
-//     sweep of it; zc is read through the cache.
+//   * Restriction and prolongation + post-smooth: row-streaming strip
+//     kernels (see "restriction, prolongation" below).  Their bound is
+//     bytes: presmooth_restrict reads r once and writes rc once, 1.25 n
+//     values for an n-value field (2.25 n with a given x), a few flops a
+//     value; prolong_postsmooth reads r and zc and writes out, 2.25 n
+//     (3.25 n with x).  So a block owns a column strip and a segment of
+//     rows and walks down them, its rows staged by 16-byte cp.async into
+//     a shared-memory ring several rows ahead: each fine value comes from
+//     device memory about once (the tiles re-read 1.27x and 1.13x, one
+//     scalar load at a time), and the loads overlap the arithmetic.  A
+//     thread forms two fine columns, holding the rows above and at the
+//     current one in registers: the restriction's residual rows and their
+//     horizontal four-tap sums, the prolongation's coarse neighbours (each
+//     loaded once a row, not four clamped loads a cell).  Ghost columns
+//     are written by the blocks at the field's edges alone; rows past the
+//     edge are copied from their mirror rows.  The TPU kernels formed the
+//     transfers as matrix products because Mosaic rejects strided slices;
+//     here they are direct four-tap sums, with no matrix products.
 //   * V-cycle: one block per sample holds the whole hierarchy below an
 //     entry level in shared memory (x of every level, r of every level
 //     below the entry, one scratch field of the entry size; the entry r is
@@ -51,15 +61,15 @@
 //     memory.  vcycle_cluster holds the hierarchy below a larger entry
 //     level (256^2 instead of 128^2 in f32, 64^2 in f64) in row strips,
 //     one cluster a sample (see "thread-block clusters" below); a level
-//     with larger strips runs faster in the tiled kernels, which the
-//     Python plan keeps above the entry.  jacobi_cluster runs all
+//     with larger strips runs faster in the transfer and tiled kernels,
+//     which the Python plan keeps above the entry.  jacobi_cluster runs all
 //     sweeps of a field past one block in one launch, and with its mean
 //     projections a coarsest level that no block holds.
 // Bound on the H100: bytes.  Every kernel does a few flops a value (a sweep
 // is 8); at 3.35 TB/s a 1024^2 f32 field read or written costs 1.25 us,
-// against 67 TFLOP/s for the arithmetic.  The tiled kernels read each input
-// once (plus halo re-reads, 1.9x for an 8-sweep Jacobi window, which the
-// cache absorbs in part) and write each output once.  The single-block
+// against 67 TFLOP/s for the arithmetic.  The tiled Jacobi reads each input
+// once (plus halo re-reads, 1.9x for an 8-sweep window, which the cache
+// absorbs in part) and writes each output once.  The single-block
 // V-cycle is latency-bound: one SM, ~10 barriers a sweep.  The cluster
 // kernels are latency-bound too, by one cluster barrier a sweep and the
 // small levels in rank 0, but spread a level's sweeps over C SMs.
@@ -70,6 +80,8 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
+#include <initializer_list>
 
 #include "grid_common.cuh"
 
@@ -87,8 +99,6 @@ constexpr int kBlockThreads = 512; // single-block, cluster kernels (see pcr.cu)
 constexpr int kTileH = 32;         // Jacobi output tile
 constexpr int kTileW = 64;
 constexpr int kMaxHalo = 8;        // sweeps per tiled Jacobi launch
-constexpr int kCoarseTile = 16;    // restriction: coarse outputs a block side
-constexpr int kFineTile = 32;      // prolongation: fine outputs a block side
 constexpr int kMaxLevels = 32;
 constexpr int kDefaultSmem = 48 * 1024;
 constexpr int kMaxSmem = 232448;   // 227 KB a block on the H100
@@ -242,90 +252,419 @@ __global__ void __launch_bounds__(kBlockThreads)
 }
 
 // ------------------------------------------------- restriction, prolongation
+//
+// Row-streaming strip kernels.  A block of kStripCols threads owns
+// kStripCols coarse columns, thread j coarse column J = J0 + j (fine
+// columns 2J, 2J + 1), and a segment of coarse rows, down which it walks
+// two fine rows ("a group") at a time.  The groups arrive in a ring of
+// kRingGroups slots in shared memory by cp.async: group g + kRingGroups - 1
+// is copied while group g is computed, into the slot group g - 1 left, so
+// each fine value is read from device memory about once (the two or four
+// overlapping rows of two segments come from L2) and the loads overlap the
+// arithmetic.  A ring row holds the strip's fine columns and kHalo more on
+// each side; the copies move kV values at a time (16 bytes where the row
+// pitch and the base pointers allow it, else one value), and columns
+// outside the field are never copied: the blocks at the field's edges
+// write those the stencil reads (the mirror columns -1, -2 <- 0, 1 and
+// w, w + 1 <- w - 1, w - 2) one group ahead, after the group has landed.
+// Rows outside the field are copied from their mirror rows.  Each thread
+// keeps the rows it needs in registers and reads only the newest group.
 
-template <typename T, bool kHasX>
-__global__ void __launch_bounds__(kThreads)
-    presmooth_restrict_tiled(const T* __restrict__ r,
-                             const T* __restrict__ x, T* __restrict__ rc,
-                             int h, int w, T weight, T c) {
-  constexpr int RW = 2 * kCoarseTile + 4;  // fine 2*I0-2 .. 2*I0+2*tile+1
-  constexpr int SW = 2 * kCoarseTile + 2;  // fine 2*I0-1 .. 2*I0+2*tile
-  __shared__ T R[RW * RW];
-  __shared__ T X[kHasX ? RW * RW : 1];
-  __shared__ T S[SW * SW];
-  const int hc = h / 2, wc = w / 2;
-  const size_t base = static_cast<size_t>(blockIdx.z) * h * w;
-  const size_t basec = static_cast<size_t>(blockIdx.z) * hc * wc;
-  const int I0 = blockIdx.y * kCoarseTile, J0 = blockIdx.x * kCoarseTile;
-  const int fi0 = 2 * I0 - 2, fj0 = 2 * J0 - 2;
-  for (int t = threadIdx.x; t < RW * RW; t += blockDim.x) {
-    const int a = t / RW, b = t - a * RW;
-    const size_t g = base + static_cast<size_t>(mirror(fi0 + a, h)) * w +
-                     mirror(fj0 + b, w);
-    R[t] = r[g];
-    if (kHasX) X[t] = x[g];
+constexpr int kStripCols = 128;  // coarse columns (threads) a strip block
+constexpr int kRingGroups = 4;   // ring slots, two fine rows each
+
+template <typename T>
+struct Vec2;
+template <>
+struct Vec2<float> {
+  using type = float2;
+};
+template <>
+struct Vec2<double> {
+  using type = double2;
+};
+
+// The fine ring row of a launch whose copies move kV values: the strip's
+// 2 kStripCols fine columns and kHalo (>= 2, a multiple of kV) each side.
+template <int kV>
+struct RowWindow {
+  static constexpr int kHalo = kV > 2 ? kV : 2;
+  static constexpr int kWidth = 2 * kStripCols + 2 * kHalo;
+};
+// A coarse ring row: the strip's coarse columns and one each side.
+constexpr int kCoarseWidth = kStripCols + 2;
+
+template <int kBytes>
+__device__ __forceinline__ void copy_async(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (kBytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"(src)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+                 "l"(src), "n"(kBytes)
+                 : "memory");
   }
-  __syncthreads();
-  // Residual r - L x on the window, x = c r unless given (one sweep from 0).
-  for (int t = threadIdx.x; t < SW * SW; t += blockDim.x) {
-    const int a = t / SW + 1, b = t % SW + 1;
-    const int q = a * RW + b;
-    T v, up, dn, lf, rt;
-    if (kHasX) {
-      v = X[q]; up = X[q - RW]; dn = X[q + RW]; lf = X[q - 1]; rt = X[q + 1];
-    } else {
-      v = c * R[q]; up = c * R[q - RW]; dn = c * R[q + RW];
-      lf = c * R[q - 1]; rt = c * R[q + 1];
+}
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Until at most N of this thread's latest groups are in flight.
+template <int N>
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Row q of an n-row field, q in [-2, n + 1], reflected once: -1 -> 0,
+// -2 -> 1, n -> n - 1, n + 1 -> n - 2 (n >= 2, or n >= 1 for q in
+// [-1, n]).  Only a segment at the field's top or bottom takes a branch.
+__device__ __forceinline__ int reflect(int q, int n) {
+  return q < 0 ? -1 - q : (q >= n ? 2 * n - 1 - q : q);
+}
+
+// Fine row q of a field into a ring row (columns c0 - kHalo ...): the
+// chunks of kV values inside [0, w) (w % kV == 0, so a chunk is all in or
+// all out).
+template <typename T, int kV>
+__device__ __forceinline__ void stage_row(T* dst, const T* field, int q,
+                                          int h, int w, int c0) {
+  constexpr int H = RowWindow<kV>::kHalo, W = RowWindow<kV>::kWidth;
+  const T* src = field + static_cast<size_t>(reflect(q, h)) * w;
+  for (int t = threadIdx.x; t < W / kV; t += blockDim.x) {
+    const int col = c0 - H + t * kV;
+    if (col >= 0 && col < w) {
+      copy_async<kV * sizeof(T)>(dst + t * kV, src + col);
     }
-    S[t] = R[q] - lap_point(v, up, dn, lf, rt, weight);
-  }
-  __syncthreads();
-  for (int t = threadIdx.x; t < kCoarseTile * kCoarseTile;
-       t += blockDim.x) {
-    const int i = t / kCoarseTile, j = t - i * kCoarseTile;
-    const int I = I0 + i, J = J0 + j;
-    if (I >= hc || J >= wc) continue;
-    T col[4];
-#pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      const T* s = S + (2 * i + p) * SW + 2 * j;
-      col[p] = restrict4(s[0], s[1], s[2], s[3]);
-    }
-    rc[basec + static_cast<size_t>(I) * wc + J] =
-        restrict4(col[0], col[1], col[2], col[3]);
   }
 }
 
-template <typename T, bool kHasX>
-__global__ void __launch_bounds__(kThreads)
-    prolong_postsmooth_tiled(const T* __restrict__ r,
+// Coarse row Q of zc [hc, wc] into a coarse ring row (columns J0 - 1 ...),
+// one value a copy.
+template <typename T>
+__device__ __forceinline__ void stage_coarse_row(T* dst, const T* zc, int Q,
+                                                 int hc, int wc, int J0) {
+  const T* src = zc + static_cast<size_t>(reflect(Q, hc)) * wc;
+  for (int t = threadIdx.x; t < kCoarseWidth; t += blockDim.x) {
+    const int col = J0 - 1 + t;
+    if (col >= 0 && col < wc) copy_async<sizeof(T)>(dst + t, src + col);
+  }
+}
+
+// The mirror columns of a landed fine ring row at the field's edges.
+template <int H, typename T>
+__device__ __forceinline__ void mirror_columns(T* row, int c0, int w) {
+  if (c0 == 0) {
+    row[H - 1] = row[H];
+    row[H - 2] = row[H + 1];
+  }
+  if (c0 + 2 * kStripCols >= w) {
+    const int e = w - c0 + H;  // column w
+    row[e] = row[e - 1];
+    row[e + 1] = row[e - 2];
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void mirror_coarse(T* row, int J0, int wc) {
+  if (J0 == 0) row[0] = row[1];
+  if (J0 + kStripCols >= wc) row[wc - J0 + 1] = row[wc - J0];
+}
+
+// A thread's six fine values 2J - 2 .. 2J + 3 of a ring row (row points at
+// column 2J - 2, an even offset: aligned pair loads).
+template <typename T>
+__device__ __forceinline__ void read6(const T* row, T (&v)[6]) {
+  using V2 = typename Vec2<T>::type;
+  const V2* q = reinterpret_cast<const V2*>(row);
+  const V2 a = q[0], b = q[1], c = q[2];
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = b.x;
+  v[3] = b.y;
+  v[4] = c.x;
+  v[5] = c.y;
+}
+
+// One fine row for the restriction: x at 2J - 2 .. 2J + 3 (c r unless x is
+// given) and r at 2J - 1 .. 2J + 2.
+template <typename T, int H, bool kHasX>
+__device__ __forceinline__ void read_fine(const T* rrow, const T* xrow,
+                                          int j, T c, T (&x6)[6],
+                                          T (&r4)[4]) {
+  T r6[6];
+  read6(rrow + 2 * j + H - 2, r6);
+  if constexpr (kHasX) {
+    read6(xrow + 2 * j + H - 2, x6);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 6; ++k) x6[k] = c * r6[k];
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) r4[k] = r6[k + 1];
+}
+
+// The horizontal restriction of one fine row of the residual r - L x:
+// restrict4 over fine columns 2J - 1 .. 2J + 2, from x of the row at
+// 2J - 2 .. 2J + 3 (xm), of the rows above and below at 2J - 1 .. 2J + 2.
+template <typename T>
+__device__ __forceinline__ T residual_row(const T (&xu)[4], const T (&xm)[6],
+                                          const T (&xd)[4], const T (&rr)[4],
+                                          T weight) {
+  T s[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    s[k] = rr[k] - lap_point(xm[k + 1], xu[k], xd[k], xm[k], xm[k + 2],
+                             weight);
+  }
+  return restrict4(s[0], s[1], s[2], s[3]);
+}
+
+template <typename T>
+__device__ __forceinline__ void centre4(const T (&v)[6], T (&out)[4]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) out[k] = v[k + 1];
+}
+
+// Group g's two fine rows, first + 2g and first + 2g + 1, of r (and x)
+// into their ring slot (rows 2 (g % kRingGroups) .. + 1 of each ring).
+template <typename T, int kV, bool kHasX>
+__device__ __forceinline__ void stage_fine_group(T* Rr, T* Xr, const T* r,
+                                                 const T* x, int g,
+                                                 int first, int h, int w,
+                                                 int c0) {
+  constexpr int W = RowWindow<kV>::kWidth;
+  for (int e = 0; e < 2; ++e) {
+    const int row = (2 * (g % kRingGroups) + e) * W, q = first + 2 * g + e;
+    stage_row<T, kV>(Rr + row, r, q, h, w, c0);
+    if constexpr (kHasX) stage_row<T, kV>(Xr + row, x, q, h, w, c0);
+  }
+}
+
+// The mirror columns of group g's landed fine rows: thread t < 2 those of
+// r's row t, 2 <= t < 4 those of x's row t - 2.
+template <typename T, int kV, bool kHasX>
+__device__ __forceinline__ void mirror_fine_group(T* Rr, T* Xr, int g,
+                                                  int c0, int w) {
+  constexpr int W = RowWindow<kV>::kWidth;
+  const int t = threadIdx.x;
+  if (t < (kHasX ? 4 : 2)) {
+    const int row = (2 * (g % kRingGroups) + (t & 1)) * W;
+    mirror_columns<RowWindow<kV>::kHalo>((t < 2 ? Rr : Xr) + row, c0, w);
+  }
+}
+
+// rc = restrict(r - L x), x = c r unless given.  Local fine row u of a
+// segment of coarse rows I0 .. I0 + nI - 1 is row 2 I0 - 2 + u; group g
+// holds rows 2g, 2g + 1; residual rows 1 .. 2 nI + 2 feed the segment's
+// coarse rows (row I0 + m from residual rows 2m + 1 .. 2m + 4).
+template <typename T, int kV, bool kHasX>
+__global__ void __launch_bounds__(kStripCols)
+    presmooth_restrict_strip(const T* __restrict__ r,
+                             const T* __restrict__ x, T* __restrict__ rc,
+                             int h, int w, int seg, T weight, T c) {
+  constexpr int H = RowWindow<kV>::kHalo, W = RowWindow<kV>::kWidth;
+  constexpr int D = kRingGroups;
+  __shared__ __align__(16) T Rr[2 * D * W];
+  __shared__ __align__(16) T Xr[(kHasX ? 2 * D : 1) * W];
+  const int hc = h / 2, wc = w / 2, j = threadIdx.x;
+  const int J0 = blockIdx.x * kStripCols, J = J0 + j, c0 = 2 * J0;
+  const int I0 = blockIdx.y * seg, nI = min(seg, hc - I0);
+  const int groups = nI + 2, first = 2 * I0 - 2;
+  const size_t base = static_cast<size_t>(blockIdx.z) * h * w;
+  const T* rb = r + base;
+  const T* xb = kHasX ? x + base : nullptr;
+  T* out = rc + static_cast<size_t>(blockIdx.z) * hc * wc;
+  const bool edge = blockIdx.x == 0 || blockIdx.x == gridDim.x - 1;
+
+  for (int g = 0; g < D - 1; ++g) {
+    if (g < groups) {
+      stage_fine_group<T, kV, kHasX>(Rr, Xr, rb, xb, g, first, h, w, c0);
+    }
+    copy_commit();
+  }
+  copy_wait<D - 2>();  // group 0 has landed
+  __syncthreads();
+  if (edge) mirror_fine_group<T, kV, kHasX>(Rr, Xr, 0, c0, w);
+  // Entering group g: x of rows 2g - 2 (at 2J - 1 .. 2J + 2) and 2g - 1,
+  // r of row 2g - 1, the horizontal restrictions of rows 2g - 3, 2g - 2.
+  T xu[4] = {}, xm[6] = {}, rm[4] = {}, h0 = T(0), h1 = T(0);
+  for (int g = 0; g < groups; ++g) {
+    copy_wait<D - 3>();  // group g + 1 has landed
+    __syncthreads();
+    if (edge && g + 1 < groups) {
+      mirror_fine_group<T, kV, kHasX>(Rr, Xr, g + 1, c0, w);
+    }
+    if (g + D - 1 < groups) {  // into the slot group g - 1 left
+      stage_fine_group<T, kV, kHasX>(Rr, Xr, rb, xb, g + D - 1, first, h, w,
+                                     c0);
+    }
+    copy_commit();
+    const int s = 2 * (g % D) * W;
+    T xa[6], ra[4], xq[6], rq[4];
+    read_fine<T, H, kHasX>(Rr + s, Xr + (kHasX ? s : 0), j, c, xa, ra);
+    read_fine<T, H, kHasX>(Rr + s + W, Xr + (kHasX ? s + W : 0), j, c, xq,
+                           rq);
+    T xa4[4], xq4[4];
+    centre4(xa, xa4);
+    centre4(xq, xq4);
+    if (g > 0) {
+      T xm4[4];
+      centre4(xm, xm4);
+      const T ha = residual_row(xu, xm, xa4, rm, weight);  // row 2g - 1
+      const T hb = residual_row(xm4, xa, xq4, ra, weight);  // row 2g
+      if (g > 1 && J < wc) {
+        out[static_cast<size_t>(I0 + g - 2) * wc + J] =
+            restrict4(h0, h1, ha, hb);
+      }
+      h0 = ha;
+      h1 = hb;
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      xu[k] = xa4[k];
+      rm[k] = rq[k];
+    }
+#pragma unroll
+    for (int k = 0; k < 6; ++k) xm[k] = xq[k];
+  }
+}
+
+// x = c r (or the given x) + P zc at fine columns 2J - 1 .. 2J + 2 of one
+// fine row, from the coarse rows near (weight 3/4) and far (1/4) at
+// J - 1, J, J + 1 (rows first, then columns, as prolong_at); r at 2J,
+// 2J + 1 kept for the sweep.
+template <typename T, int H, bool kHasX>
+__device__ __forceinline__ void form_x(const T* rrow, const T* xrow, int j,
+                                       const T (&zn)[3], const T (&zf)[3],
+                                       T c, T (&X)[4], T (&r2)[2]) {
+  T a[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) a[k] = T(0.75) * zn[k] + T(0.25) * zf[k];
+  const T p[4] = {T(0.75) * a[0] + T(0.25) * a[1],
+                  T(0.75) * a[1] + T(0.25) * a[0],
+                  T(0.75) * a[1] + T(0.25) * a[2],
+                  T(0.75) * a[2] + T(0.25) * a[1]};
+  T r6[6];
+  read6(rrow + 2 * j + H - 2, r6);
+  if constexpr (kHasX) {
+    T x6[6];
+    read6(xrow + 2 * j + H - 2, x6);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) X[k] = x6[k + 1] + p[k];
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) X[k] = c * r6[k + 1] + p[k];
+  }
+  r2[0] = r6[2];
+  r2[1] = r6[3];
+}
+
+// One sweep at fine columns 2J, 2J + 1 of a row of X (2J - 1 .. 2J + 2),
+// with the rows above and below at 2J, 2J + 1, stored as a pair.
+template <typename T>
+__device__ __forceinline__ void sweep_pair(T* dst, const T (&up)[2],
+                                           const T (&X)[4], const T (&dn)[2],
+                                           const T (&rr)[2], T weight, T c) {
+  typename Vec2<T>::type v;
+  v.x = sweep_point(X[1], rr[0], up[0], dn[0], X[0], X[2], weight, c);
+  v.y = sweep_point(X[2], rr[1], up[1], dn[1], X[1], X[3], weight, c);
+  *reinterpret_cast<typename Vec2<T>::type*>(dst) = v;
+}
+
+template <typename T>
+__device__ __forceinline__ void read3(const T* row, T (&v)[3]) {
+  v[0] = row[0];
+  v[1] = row[1];
+  v[2] = row[2];
+}
+
+// out = one sweep of x = c r (or the given x) + P zc.  Local fine row u of
+// a segment of coarse rows I0 .. I0 + nI - 1 is row 2 I0 - 1 + u, local
+// coarse row v is I0 - 1 + v; group g holds fine rows 2g, 2g + 1 and
+// coarse row g + 1 (coarse row 0 has a slot of its own, D); x of rows
+// 2g - 2 .. 2g + 1 gives out at rows 2g - 1 and 2g.
+template <typename T, int kV, bool kHasX>
+__global__ void __launch_bounds__(kStripCols)
+    prolong_postsmooth_strip(const T* __restrict__ r,
                              const T* __restrict__ zc,
                              const T* __restrict__ x, T* __restrict__ out,
-                             int h, int w, T weight, T c) {
-  constexpr int XW = kFineTile + 2;
-  __shared__ T X[XW * XW];
-  __shared__ T Rs[XW * XW];
-  const int hc = h / 2, wc = w / 2;
+                             int h, int w, int seg, T weight, T c) {
+  constexpr int H = RowWindow<kV>::kHalo, W = RowWindow<kV>::kWidth;
+  constexpr int D = kRingGroups, CW = kCoarseWidth;
+  constexpr int kFineRows = kHasX ? 4 : 2;  // fine ring rows a group
+  __shared__ __align__(16) T Rr[2 * D * W];
+  __shared__ __align__(16) T Xr[(kHasX ? 2 * D : 1) * W];
+  __shared__ __align__(16) T Zr[(D + 1) * CW];
+  const int hc = h / 2, wc = w / 2, j = threadIdx.x;
+  const int J0 = blockIdx.x * kStripCols, J = J0 + j, c0 = 2 * J0;
+  const int I0 = blockIdx.y * seg, nI = min(seg, hc - I0);
+  const int groups = nI + 1, first = 2 * I0 - 1;
   const size_t base = static_cast<size_t>(blockIdx.z) * h * w;
-  const T* z = zc + static_cast<size_t>(blockIdx.z) * hc * wc;
-  const int i0 = blockIdx.y * kFineTile - 1, j0 = blockIdx.x * kFineTile - 1;
-  for (int t = threadIdx.x; t < XW * XW; t += blockDim.x) {
-    const int a = t / XW, b = t - a * XW;
-    const int fi = mirror(i0 + a, h), fj = mirror(j0 + b, w);
-    const size_t g = base + static_cast<size_t>(fi) * w + fj;
-    const T rv = r[g];
-    Rs[t] = rv;
-    X[t] = (kHasX ? x[g] : c * rv) + prolong_at(z, fi, fj, hc, wc);
+  const T* rb = r + base;
+  const T* xb = kHasX ? x + base : nullptr;
+  const T* zb = zc + static_cast<size_t>(blockIdx.z) * hc * wc;
+  T* ob = out + base;
+  const bool edge = blockIdx.x == 0 || blockIdx.x == gridDim.x - 1;
+
+  for (int g = 0; g < D - 1; ++g) {
+    if (g < groups) {
+      stage_fine_group<T, kV, kHasX>(Rr, Xr, rb, xb, g, first, h, w, c0);
+      stage_coarse_row(Zr + (g % D) * CW, zb, I0 + g, hc, wc, J0);
+      if (g == 0) stage_coarse_row(Zr + D * CW, zb, I0 - 1, hc, wc, J0);
+    }
+    copy_commit();
   }
+  copy_wait<D - 2>();  // group 0 and coarse row 0 have landed
   __syncthreads();
-  for (int t = threadIdx.x; t < kFineTile * kFineTile; t += blockDim.x) {
-    const int a = t / kFineTile + 1, b = t % kFineTile + 1;
-    const int gi = i0 + a, gj = j0 + b;
-    if (gi >= h || gj >= w) continue;
-    const int q = a * XW + b;
-    out[base + static_cast<size_t>(gi) * w + gj] =
-        sweep_point(X[q], Rs[q], X[q - XW], X[q + XW], X[q - 1], X[q + 1],
-                    weight, c);
+  if (edge) {
+    mirror_fine_group<T, kV, kHasX>(Rr, Xr, 0, c0, w);
+    if (j == kFineRows) mirror_coarse(Zr, J0, wc);
+    if (j == kFineRows + 1) mirror_coarse(Zr + D * CW, J0, wc);
+  }
+  // Entering group g: coarse row g, x of rows 2g - 2 (at 2J, 2J + 1) and
+  // 2g - 1 (at 2J - 1 .. 2J + 2), r of row 2g - 1 (at 2J, 2J + 1).
+  T zo[3] = {}, xu[2] = {}, xm[4] = {}, rm[2] = {};
+  for (int g = 0; g < groups; ++g) {
+    copy_wait<D - 3>();  // group g + 1 has landed
+    __syncthreads();
+    if (edge && g + 1 < groups) {
+      mirror_fine_group<T, kV, kHasX>(Rr, Xr, g + 1, c0, w);
+      if (j == kFineRows) mirror_coarse(Zr + ((g + 1) % D) * CW, J0, wc);
+    }
+    const int gn = g + D - 1;  // into the slot group g - 1 left
+    if (gn < groups) {
+      stage_fine_group<T, kV, kHasX>(Rr, Xr, rb, xb, gn, first, h, w, c0);
+      stage_coarse_row(Zr + (gn % D) * CW, zb, I0 + gn, hc, wc, J0);
+    }
+    copy_commit();
+    const int s = 2 * (g % D) * W;
+    if (g == 0) read3(Zr + D * CW + j, zo);
+    T zn[3];
+    read3(Zr + (g % D) * CW + j, zn);
+    // Fine row 2g is odd in the field (coarse row g near, g + 1 far),
+    // 2g + 1 even (g + 1 near, g far).
+    T Xa[4], ra[2], Xq[4], rq[2];
+    form_x<T, H, kHasX>(Rr + s, Xr + (kHasX ? s : 0), j, zo, zn, c, Xa, ra);
+    form_x<T, H, kHasX>(Rr + s + W, Xr + (kHasX ? s + W : 0), j, zn, zo, c,
+                        Xq, rq);
+    const T xa2[2] = {Xa[1], Xa[2]};
+    if (g > 0 && J < wc) {
+      T* dst = ob + static_cast<size_t>(first + 2 * g - 1) * w + 2 * J;
+      const T xm2[2] = {xm[1], xm[2]};
+      const T xq2[2] = {Xq[1], Xq[2]};
+      sweep_pair(dst, xu, xm, xa2, rm, weight, c);      // row 2g - 1
+      sweep_pair(dst + w, xm2, Xa, xq2, ra, weight, c);  // row 2g
+    }
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      xu[k] = xa2[k];
+      rm[k] = rq[k];
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) xm[k] = Xq[k];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) zo[k] = zn[k];
   }
 }
 
@@ -1052,34 +1391,88 @@ int launch_jacobi(const T* x, const T* r, T* out, int B, int h, int w,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Whether a strip launch can take: even h, w >= 2; a segment count the
+// grid carries; on the wide path (16-byte copies) w and every fine
+// field's base pointer 16-byte aligned.
+template <typename T>
+bool strip_ok(int B, int h, int w, int seg, int wide,
+              std::initializer_list<const T*> fine) {
+  if (B < 1 || h < 2 || w < 2 || h % 2 || w % 2 || seg < 1 ||
+      ceil_div(h / 2, seg) > 65535) {
+    return false;
+  }
+  if (!wide) return true;
+  if ((static_cast<size_t>(w) * sizeof(T)) % 16) return false;
+  for (const T* p : fine) {
+    if (p != nullptr && reinterpret_cast<uintptr_t>(p) % 16) return false;
+  }
+  return true;
+}
+
+dim3 strip_grid(int B, int h, int w, int seg) {
+  return dim3(ceil_div(w / 2, kStripCols), ceil_div(h / 2, seg), B);
+}
+
+template <typename T, int kV>
+void presmooth_restrict_v(const T* r, const T* x, T* rc, int B, int h,
+                          int w, int seg, T weight, T c, cudaStream_t s) {
+  const dim3 grid = strip_grid(B, h, w, seg);
+  if (x == nullptr) {
+    presmooth_restrict_strip<T, kV, false><<<grid, kStripCols, 0, s>>>(
+        r, nullptr, rc, h, w, seg, weight, c);
+  } else {
+    presmooth_restrict_strip<T, kV, true><<<grid, kStripCols, 0, s>>>(
+        r, x, rc, h, w, seg, weight, c);
+  }
+}
+
 template <typename T>
 int launch_presmooth_restrict(const T* r, const T* x, T* rc, int B, int h,
-                              int w, double weight, double c, void* stream) {
+                              int w, int seg, int wide, double weight,
+                              double c, void* stream) {
+  if (!strip_ok<T>(B, h, w, seg, wide, {r, x})) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(ceil_div(w / 2, kCoarseTile), ceil_div(h / 2, kCoarseTile),
-                  B);
-  if (x == nullptr) {
-    presmooth_restrict_tiled<T, false><<<grid, kThreads, 0, s>>>(
-        r, nullptr, rc, h, w, T(weight), T(c));
+  if (wide) {
+    presmooth_restrict_v<T, 16 / sizeof(T)>(r, x, rc, B, h, w, seg,
+                                            T(weight), T(c), s);
   } else {
-    presmooth_restrict_tiled<T, true><<<grid, kThreads, 0, s>>>(
-        r, x, rc, h, w, T(weight), T(c));
+    presmooth_restrict_v<T, 1>(r, x, rc, B, h, w, seg, T(weight), T(c), s);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int kV>
+void prolong_postsmooth_v(const T* r, const T* zc, const T* x, T* out,
+                          int B, int h, int w, int seg, T weight, T c,
+                          cudaStream_t s) {
+  const dim3 grid = strip_grid(B, h, w, seg);
+  if (x == nullptr) {
+    prolong_postsmooth_strip<T, kV, false><<<grid, kStripCols, 0, s>>>(
+        r, zc, nullptr, out, h, w, seg, weight, c);
+  } else {
+    prolong_postsmooth_strip<T, kV, true><<<grid, kStripCols, 0, s>>>(
+        r, zc, x, out, h, w, seg, weight, c);
+  }
+}
+
+// out is stored in pairs: its base pointer must be aligned to two values.
 template <typename T>
 int launch_prolong_postsmooth(const T* r, const T* zc, const T* x, T* out,
-                              int B, int h, int w, double weight, double c,
-                              void* stream) {
+                              int B, int h, int w, int seg, int wide,
+                              double weight, double c, void* stream) {
+  if (!strip_ok<T>(B, h, w, seg, wide, {r, x}) ||
+      reinterpret_cast<uintptr_t>(out) % (2 * sizeof(T))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(ceil_div(w, kFineTile), ceil_div(h, kFineTile), B);
-  if (x == nullptr) {
-    prolong_postsmooth_tiled<T, false><<<grid, kThreads, 0, s>>>(
-        r, zc, nullptr, out, h, w, T(weight), T(c));
+  if (wide) {
+    prolong_postsmooth_v<T, 16 / sizeof(T)>(r, zc, x, out, B, h, w, seg,
+                                            T(weight), T(c), s);
   } else {
-    prolong_postsmooth_tiled<T, true><<<grid, kThreads, 0, s>>>(
-        r, zc, x, out, h, w, T(weight), T(c));
+    prolong_postsmooth_v<T, 1>(r, zc, x, out, B, h, w, seg, T(weight),
+                               T(c), s);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -1239,10 +1632,11 @@ int schedules(K kernel, int C, bool* ok) {
   return err;
 }
 
-// The largest cluster, 16 or 8, that the card schedules for both cluster
-// kernels, or 0.  A refused size is not an error unless 8 is refused too.
+// The largest cluster, 16 or 8, that the current card schedules for both
+// cluster kernels, or 0.  A refused size is not an error unless 8 is
+// refused too.
 template <typename T>
-int max_cluster(int* out) {
+int max_cluster_here(int* out) {
   *out = 0;
   for (int C = kMaxCluster; C >= 8; C /= 2) {
     bool ok_v = false, ok_j = false;
@@ -1256,6 +1650,19 @@ int max_cluster(int* out) {
     if (C == 8 && err) return err;
   }
   return 0;
+}
+
+// max_cluster_here on card `device`, the current card restored after.
+template <typename T>
+int max_cluster(int device, int* out) {
+  *out = 0;
+  int prev = 0;
+  int err = static_cast<int>(cudaGetDevice(&prev));
+  if (!err) err = static_cast<int>(cudaSetDevice(device));
+  if (err) return err;
+  err = max_cluster_here<T>(out);
+  const int restored = static_cast<int>(cudaSetDevice(prev));
+  return err ? err : restored;
 }
 
 template <typename T>
@@ -1293,33 +1700,37 @@ int stencil_jacobi_f64(const double* x, const double* r, double* out, int B,
                                stream);
 }
 
-// x == NULL: the pre-smoothed field is c·r (one sweep from zero).
+// The strip kernels: segments of seg coarse rows; wide != 0 takes 16-byte
+// copies (w and the fine fields' base pointers 16-byte aligned), else one
+// value a copy.  x == NULL: the pre-smoothed field is c·r (one sweep from
+// zero).
 int stencil_presmooth_restrict_f32(const float* r, const float* x, float* rc,
-                                   int B, int h, int w, double weight,
-                                   double c, void* stream) {
-  return launch_presmooth_restrict<float>(r, x, rc, B, h, w, weight, c,
-                                          stream);
+                                   int B, int h, int w, int seg, int wide,
+                                   double weight, double c, void* stream) {
+  return launch_presmooth_restrict<float>(r, x, rc, B, h, w, seg, wide,
+                                          weight, c, stream);
 }
 int stencil_presmooth_restrict_f64(const double* r, const double* x,
-                                   double* rc, int B, int h, int w,
-                                   double weight, double c, void* stream) {
-  return launch_presmooth_restrict<double>(r, x, rc, B, h, w, weight, c,
-                                           stream);
+                                   double* rc, int B, int h, int w, int seg,
+                                   int wide, double weight, double c,
+                                   void* stream) {
+  return launch_presmooth_restrict<double>(r, x, rc, B, h, w, seg, wide,
+                                           weight, c, stream);
 }
 
 int stencil_prolong_postsmooth_f32(const float* r, const float* zc,
                                    const float* x, float* out, int B, int h,
-                                   int w, double weight, double c,
-                                   void* stream) {
-  return launch_prolong_postsmooth<float>(r, zc, x, out, B, h, w, weight, c,
-                                          stream);
+                                   int w, int seg, int wide, double weight,
+                                   double c, void* stream) {
+  return launch_prolong_postsmooth<float>(r, zc, x, out, B, h, w, seg, wide,
+                                          weight, c, stream);
 }
 int stencil_prolong_postsmooth_f64(const double* r, const double* zc,
                                    const double* x, double* out, int B,
-                                   int h, int w, double weight, double c,
-                                   void* stream) {
-  return launch_prolong_postsmooth<double>(r, zc, x, out, B, h, w, weight, c,
-                                           stream);
+                                   int h, int w, int seg, int wide,
+                                   double weight, double c, void* stream) {
+  return launch_prolong_postsmooth<double>(r, zc, x, out, B, h, w, seg, wide,
+                                           weight, c, stream);
 }
 
 // hs, ws: host arrays of the n_levels level shapes, entry level first.
@@ -1374,10 +1785,14 @@ int stencil_jacobi_cluster_f64(const double* x, const double* r,
                                        project, weight, c, stream);
 }
 
-// *out = the largest cluster (16 or 8) the card schedules for the cluster
-// kernels at the full shared memory a CTA, or 0.
-int stencil_max_cluster_f32(int* out) { return max_cluster<float>(out); }
-int stencil_max_cluster_f64(int* out) { return max_cluster<double>(out); }
+// *out = the largest cluster (16 or 8) card `device` schedules for the
+// cluster kernels at the full shared memory a CTA, or 0.
+int stencil_max_cluster_f32(int device, int* out) {
+  return max_cluster<float>(device, out);
+}
+int stencil_max_cluster_f64(int device, int* out) {
+  return max_cluster<double>(device, out);
+}
 
 // part holds B·ceil(n / 4096) values.
 int stencil_subtract_mean_f32(const float* x, float* out, float* part, int B,

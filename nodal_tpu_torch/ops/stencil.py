@@ -21,7 +21,10 @@ takes fields ``[B, h, w]`` (a leading batch) in float32 or float64:
 
 Each wrapper takes its plain version (``*_plain``) for CPU tensors and, for
 CUDA tensors, launches its kernel or raises: there is no fallback.  Each
-adds one to its ``.launches`` per kernel launch.  The CUDA :func:`vcycle`
+adds one to its ``.launches`` per kernel launch.  The transfer kernels
+(:func:`presmooth_restrict`, :func:`prolong_postsmooth`) walk column strips
+and row segments of the field (:func:`strip_plan`), with 16-byte copies
+where the row pitch allows them.  The CUDA :func:`vcycle`
 takes any field: the levels above the largest one whose hierarchy fits a
 thread-block cluster (:func:`vcycle_cluster_plan`) go through the
 restriction and prolongation kernels, and the rest runs in one cluster
@@ -71,6 +74,15 @@ CLUSTER_ENTRY_VALUES = 8192
 #: Static shared values of a cluster kernel beside the reduction's: the two
 #: slots its cluster sums alternate between (``kSlots``).
 CLUSTER_SLOTS = 2
+#: Coarse columns (and threads) a block of the transfer kernels owns
+#: (``kStripCols``): two fine columns a thread.
+STRIP_COLS = 128
+#: Blocks a transfer launch aims at for each SM, so that enough copies are
+#: in flight on every SM (on the H100, 8 left the f64 blocks, up to 38 KB
+#: of shared memory each, slower at 4096²).
+STRIP_BLOCKS_PER_SM = 4
+#: Largest second dimension of a CUDA grid (the segments).
+MAX_GRID_Y = 65_535
 
 
 def _cluster_static_bytes(itemsize: int) -> int:
@@ -307,6 +319,49 @@ jacobi_sweeps.launches = 0
 jacobi_sweeps.cluster_launches = 0
 
 
+@dataclass(frozen=True)
+class StripPlan:
+    """How the transfer kernels cut a [B, h, w] field: ``strips`` column
+    strips of ``STRIP_COLS`` coarse columns, ``segments`` row segments of
+    ``segment`` coarse rows (the last may be shorter), and the load path:
+    16-byte copies (``wide``) or one value a copy (the narrow path)."""
+
+    wide: bool
+    segment: int
+    strips: int
+    segments: int
+
+
+@functools.cache
+def strip_plan(B: int, h: int, w: int, itemsize: int, sms: int,
+               aligned: bool = True) -> StripPlan:
+    """The transfer kernels' plan for [B, h, w] fields (h, w even) on a
+    card of ``sms`` SMs.  Segments are as long as ``STRIP_BLOCKS_PER_SM``
+    blocks an SM allow, down to one coarse row: a short segment stages
+    more rows past its own (four fine rows for the restriction, two for
+    the prolongation, read from L2), but a small field cut in few blocks
+    waits on each block's ring (on the H100, segments of at least 8 rows
+    left the 512² levels slower than the tiled kernels these replace).
+    The wide path needs a row pitch of a multiple of 16 bytes and 16-byte
+    aligned fields (``aligned``)."""
+    hc, wc = h // 2, w // 2
+    strips = -(-wc // STRIP_COLS)
+    seg = max(-(-hc * strips * B // (STRIP_BLOCKS_PER_SM * sms)),
+              -(-hc // MAX_GRID_Y))
+    segments = -(-hc // min(seg, hc))
+    return StripPlan(aligned and w * itemsize % 16 == 0,
+                     -(-hc // segments), strips, segments)
+
+
+def _strip_plan(r: torch.Tensor, x: torch.Tensor | None) -> StripPlan:
+    """:func:`strip_plan` for r's shape on its card, wide only where r's
+    and x's base pointers are 16-byte aligned."""
+    B, h, w = r.shape
+    return strip_plan(B, h, w, r.element_size(), _sm_count(r.device),
+                      all(t.data_ptr() % 16 == 0 for t in (r, x)
+                          if t is not None))
+
+
 def presmooth_restrict(r: torch.Tensor, *, weight: float = 1.0,
                        omega: float = 0.8,
                        x: torch.Tensor | None = None) -> torch.Tensor:
@@ -322,10 +377,11 @@ def presmooth_restrict(r: torch.Tensor, *, weight: float = 1.0,
     rc = torch.empty(B, h // 2, w // 2, dtype=r.dtype, device=r.device)
     if B == 0:
         return rc
+    plan = _strip_plan(r, x)
     with torch.cuda.device(r.device):
         err = _launcher("presmooth_restrict", r.dtype)(
-            r.data_ptr(), _ptr(x), rc.data_ptr(), B, h, w, weight,
-            omega / (4.0 * weight), _stream(r))
+            r.data_ptr(), _ptr(x), rc.data_ptr(), B, h, w, plan.segment,
+            int(plan.wide), weight, omega / (4.0 * weight), _stream(r))
     _raise_on(err, "presmooth_restrict", tuple(r.shape), r.dtype)
     presmooth_restrict.launches += 1
     return rc
@@ -353,10 +409,12 @@ def prolong_postsmooth(r: torch.Tensor, zc: torch.Tensor, *,
     out = torch.empty_like(r)
     if B == 0:
         return out
+    plan = _strip_plan(r, x)
     with torch.cuda.device(r.device):
         err = _launcher("prolong_postsmooth", r.dtype)(
             r.data_ptr(), zc.data_ptr(), _ptr(x), out.data_ptr(), B, h, w,
-            weight, omega / (4.0 * weight), _stream(r))
+            plan.segment, int(plan.wide), weight, omega / (4.0 * weight),
+            _stream(r))
     _raise_on(err, "prolong_postsmooth", tuple(r.shape), r.dtype)
     prolong_postsmooth.launches += 1
     return out
@@ -471,18 +529,26 @@ def jacobi_cluster_size(h: int, w: int, itemsize: int,
     return None
 
 
+def max_cluster(device, dtype: torch.dtype) -> int:
+    """The largest cluster (16 or 8) card ``device`` (a CUDA
+    ``torch.device`` or its index; no index: the current card) schedules
+    for the cluster kernels at the full shared memory a CTA, as
+    ``cudaOccupancyMaxActiveClusters`` reports it, queried once a card and
+    dtype; raises when neither size can be scheduled."""
+    index = device.index if isinstance(device, torch.device) else device
+    if index is None:
+        index = torch.cuda.current_device()
+    return _max_cluster(int(index), dtype)
+
+
 @functools.cache
-def max_cluster(dtype: torch.dtype) -> int:
-    """The largest cluster (16 or 8) the card schedules for the cluster
-    kernels at the full shared memory a CTA, as
-    ``cudaOccupancyMaxActiveClusters`` reports it; raises when neither
-    size can be scheduled."""
+def _max_cluster(index: int, dtype: torch.dtype) -> int:
     out = ctypes.c_int(0)
-    err = _launcher("max_cluster", dtype)(ctypes.byref(out))
+    err = _launcher("max_cluster", dtype)(index, ctypes.byref(out))
     _raise_on(err, "cluster occupancy query", (), dtype)
     if out.value not in (8, 16):
-        raise RuntimeError(f"the card schedules no cluster of 8 or 16 CTAs "
-                           f"at {SMEM_BYTES_MAX} bytes of shared memory "
+        raise RuntimeError(f"card {index} schedules no cluster of 8 or 16 "
+                           f"CTAs at {SMEM_BYTES_MAX} bytes of shared memory "
                            f"each ({dtype})")
     return out.value
 
@@ -500,7 +566,7 @@ def batch_cluster_cap(batch: int, max_cluster: int, sms: int) -> int:
 
 def _cluster_cap(t: torch.Tensor) -> int:
     """:func:`batch_cluster_cap` for the batch of ``t`` on its card."""
-    return batch_cluster_cap(t.shape[0], max_cluster(t.dtype),
+    return batch_cluster_cap(t.shape[0], max_cluster(t.device, t.dtype),
                              _sm_count(t.device))
 
 

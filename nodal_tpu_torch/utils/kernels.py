@@ -56,10 +56,10 @@ _SIGNATURES = {
        for name in ("block_lu_solve_f32", "block_lu_solve_f64")},
     **{name: ([_P] * 3 + [_I] * 5 + [_D] * 2 + [_P], _I)
        for name in ("stencil_jacobi_f32", "stencil_jacobi_f64")},
-    **{name: ([_P] * 3 + [_I] * 3 + [_D] * 2 + [_P], _I)
+    **{name: ([_P] * 3 + [_I] * 5 + [_D] * 2 + [_P], _I)
        for name in ("stencil_presmooth_restrict_f32",
                     "stencil_presmooth_restrict_f64")},
-    **{name: ([_P] * 4 + [_I] * 3 + [_D] * 2 + [_P], _I)
+    **{name: ([_P] * 4 + [_I] * 5 + [_D] * 2 + [_P], _I)
        for name in ("stencil_prolong_postsmooth_f32",
                     "stencil_prolong_postsmooth_f64")},
     **{name: ([_P] * 2 + [_I] * 2 + [_P] * 2 + [_I] * 2 + [_D] * 2 + [_P],
@@ -72,7 +72,7 @@ _SIGNATURES = {
     **{name: ([_P] * 3 + [_I] * 6 + [_D] * 2 + [_P], _I)
        for name in ("stencil_jacobi_cluster_f32",
                     "stencil_jacobi_cluster_f64")},
-    **{name: ([_P], _I)
+    **{name: ([_I, _P], _I)
        for name in ("stencil_max_cluster_f32", "stencil_max_cluster_f64")},
     **{name: ([_P] * 3 + [_I, _LL, _P], _I)
        for name in ("stencil_subtract_mean_f32",

@@ -222,8 +222,8 @@ def test_wrappers_refuse_bad_inputs():
 def test_kernels_are_built_with_the_library():
     assert "stencil.cu" in [p.name for p in kernels._sources()]
     src = (kernels.CSRC_DIR / "stencil.cu").read_text()
-    for name, n_args in (("jacobi", 11), ("presmooth_restrict", 9),
-                         ("prolong_postsmooth", 10), ("vcycle", 11),
+    for name, n_args in (("jacobi", 11), ("presmooth_restrict", 11),
+                         ("prolong_postsmooth", 12), ("vcycle", 11),
                          ("subtract_mean", 6)):
         for suffix in ("f32", "f64"):
             full = f"stencil_{name}_{suffix}"
@@ -546,10 +546,43 @@ def test_cluster_constants_match_the_kernel_source():
     assert int(consts["kMaxCluster"]) == stencil.MAX_CLUSTER
     assert int(consts["kRank0Rows"]) == stencil.RANK0_ROWS
     assert int(consts["kSlots"]) == stencil.CLUSTER_SLOTS
+    # The transfer kernels: a thread a coarse column of the strip.
+    assert int(consts["kStripCols"]) == stencil.STRIP_COLS
     for name, n_args in (("vcycle_cluster", 13), ("jacobi_cluster", 12),
-                         ("max_cluster", 1)):
+                         ("max_cluster", 2), ("presmooth_restrict", 11),
+                         ("prolong_postsmooth", 12)):
         for suffix in ("f32", "f64"):
             full = f"stencil_{name}_{suffix}"
             argtypes, _ = kernels._SIGNATURES[full]
             assert len(argtypes) == n_args, full
             assert f"int {full}(" in src
+
+
+def test_max_cluster_is_each_cards_own(monkeypatch):
+    """``max_cluster`` queries each card once a dtype and keeps its answer
+    apart from the other cards'."""
+    queries = []
+
+    def launcher(name, dtype):
+        assert name == "max_cluster"
+
+        def query(index, out):
+            queries.append((index, dtype))
+            out._obj.value = 16 if index == 0 else 8
+            return 0
+        return query
+
+    monkeypatch.setattr(stencil, "_launcher", launcher)
+    stencil._max_cluster.cache_clear()
+    try:
+        assert stencil.max_cluster(0, torch.float32) == 16
+        assert stencil.max_cluster(torch.device("cuda", 1),
+                                   torch.float32) == 8
+        assert stencil.max_cluster(1, torch.float32) == 8
+        assert stencil.max_cluster(torch.device("cuda", 0),
+                                   torch.float32) == 16
+        assert stencil.max_cluster(1, torch.float64) == 8
+        assert queries == [(0, torch.float32), (1, torch.float32),
+                           (1, torch.float64)]
+    finally:
+        stencil._max_cluster.cache_clear()
