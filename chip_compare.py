@@ -3,6 +3,7 @@
     python3 chip_compare.py [--mma] ROOT [ROOT ...]
     python3 chip_compare.py --sband ROOT [ROOT ...]
     python3 chip_compare.py --grid ROOT [ROOT ...]
+    python3 chip_compare.py --pcr ROOT [ROOT ...]
 
 Each ROOT is a directory that holds a ``nodal_tpu_torch`` package: this
 checkout (``.``) or another commit unpacked beside it, for instance
@@ -35,9 +36,10 @@ configuration and the SM clock; and, where every check passed, the
 
 With ``--grid``, the multigrid V-cycle and the grid solve instead: the
 transfer kernels (``presmooth_restrict``, ``prolong_postsmooth``, each
-with and without a given x) by kernel name from a trace (``kernel_split``)
-at ``TRANSFER_SHAPES``, f32 and f64, beside their bounds
-(``chip_smoke.stencil_bound``); the ``vcycle`` wrapper's event time and
+with and without a given x) and the fused CG's ``stencil_partials`` by
+kernel name from a trace (``kernel_split``) at ``TRANSFER_SHAPES``, f32
+and f64, beside their bounds (``chip_smoke.stencil_bound``,
+``chip_smoke.fused_cg_bound``); the ``vcycle`` wrapper's event time and
 its device time by kernel name at the 1024², 1022² and 1000² finest
 shapes, f32 and f64; ``jacobi_sweeps`` at 96 sweeps on the coarsest shapes
 (``chip_smoke.CLUSTER_JACOBI_SHAPES``); kernels and device ms a solve (by
@@ -45,6 +47,15 @@ trace) and the host-clock latency (``host_median_ms``) of the
 ``GRID_COMPARE_RUNS`` grids and the 16 probe pairs; and, where the ROOT
 has cluster kernels, the cycle at 1024² f32 and its grid solve with
 clusters of at most 8 against at most 16.
+
+With ``--pcr``, the tridiagonal kernel instead: ``pcr_solve`` at
+B = 16384, n = 1000 (``PCR_SHAPE``), f32 and f64, by CUDA events
+(``event_median_ms``) and by kernel name from a trace, beside its bound
+(``chip_smoke.pcr_bound``) and its difference from the plain PCR; then the
+1000-rung ladder at B = 16384 (``chip_smoke.phase_path``'s configuration):
+``refine="auto"`` and raw (``refine=False``) solves/s, each with the
+kernel's launches in a call, and the raw f32 and ``auto`` answers' worst
+and median error against the raw f64 solve.
 
 Prints the card's name and power limit, then one JSON line a measurement
 tagged with its ROOT; with ``--mma`` first the FP64 ``mma.sync`` shapes'
@@ -99,6 +110,8 @@ GRID_COMPARE_RUNS = ("grid1024_f32", "grid1024_f64", "grid4096_f32",
 # (B, h, w) the transfer kernels are traced at: the 1024² grid's finest
 # level, the 16-pair batch's and the 4096² grid's.
 TRANSFER_SHAPES = [(1, 1024, 1024), (16, 1024, 1024), (1, 4096, 4096)]
+# (B, n) of --pcr: the ladder headline's batch and chain.
+PCR_SHAPE = (16384, 1000)
 
 MMA_SRC = r"""
 #include <cuda_runtime.h>
@@ -316,12 +329,29 @@ def measure_transfers(cs, tag, st, gen) -> None:
             torch.cuda.empty_cache()
 
 
+def measure_partials(cs, tag, fc, gen) -> None:
+    """The fused CG's ``stencil_partials`` by kernel name."""
+    for B, h, w in TRANSFER_SHAPES:
+        for dtype in (torch.float32, torch.float64):
+            p = torch.randn(B, h, w, generator=gen, device="cuda",
+                            dtype=dtype)
+            parts = fc.stencil_partials(p)[1].shape[1]
+            emit({**tag, "phase": "stencil_partials", "B": B, "h": h,
+                  "w": w, "dtype": str(dtype), "parts": parts,
+                  **cs.kernel_split(lambda: fc.stencil_partials(p)),
+                  **cs.fused_cg_bound("stencil_partials", B, h, w, dtype,
+                                      parts)})
+            del p
+            torch.cuda.empty_cache()
+
+
 def measure_grid(root: Path) -> None:
     cs, tag = load_root(root)
-    from nodal_tpu_torch.ops import grid, stencil as st
+    from nodal_tpu_torch.ops import fused_cg, grid, stencil as st
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     measure_transfers(cs, tag, st, gen)
+    measure_partials(cs, tag, fused_cg, gen)
     for n in (1024, 1022, 1000):
         for dtype in (torch.float32, torch.float64):
             r = torch.randn(1, n, n, generator=gen, device="cuda",
@@ -370,6 +400,49 @@ def measure_grid(root: Path) -> None:
     st.max_cluster = queried
 
 
+def measure_pcr(root: Path) -> None:
+    cs, tag = load_root(root)
+    from nodal_tpu_torch import BatchedSolver, Circuit, Netlist
+    from nodal_tpu_torch.ops import pcr, tridiag
+    from nodal_tpu_torch.utils.gridgen import ladder_rows
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    B, n = PCR_SHAPE
+    for dtype in (torch.float32, torch.float64):
+        bands = cs.random_bands(B, n, dtype, gen)
+        call = lambda: pcr.pcr_solve(*bands)  # noqa: E731
+        err = cs.rel_diff(call(), tridiag.tridiag_solve(*bands))
+        emit({**tag, "phase": "pcr", "B": B, "n": n, "dtype": str(dtype),
+              "max_rel_diff_vs_plain": err,
+              "event_ms": cs.event_median_ms(call), **cs.kernel_split(call),
+              **cs.pcr_bound(n, B, dtype)})
+        del bands
+        torch.cuda.empty_cache()
+
+    circuit = Circuit(Netlist.from_rows(ladder_rows(cs.LADDER_RUNGS)))
+    params = torch.as_tensor(cs.sweep_params(circuit, cs.BATCH),
+                             device="cuda")
+    x64 = circuit.batched_solver(dtype=torch.float64, refine=False,
+                                 device="cuda")(params)
+    for refine in ("auto", False):
+        solver = BatchedSolver(circuit, dtype=torch.float32, refine=refine,
+                               device="cuda")
+        pcr.pcr_solve.launches = 0
+        xs = solver(params)
+        torch.cuda.synchronize()
+        launches = pcr.pcr_solve.launches
+        err = cs.rel_errors(xs, x64)
+        times, ms = cs.median_call_ms(solver, params)
+        emit({**tag, "phase": "ladder_rate", "refine": refine,
+              "B": cs.BATCH, "method": solver.method, "launches": launches,
+              "max_rel_err_vs_f64": float(err.max()),
+              "median_rel_err_vs_f64": float(err.median()),
+              "ms_reps": times, "median_ms": ms,
+              "solves_per_s": cs.BATCH / (ms / 1e3)})
+        del solver, xs
+        torch.cuda.empty_cache()
+
+
 def measure(root: Path) -> None:
     cs, tag = load_root(root)
     from nodal_tpu_torch.ops import band, block_lu, block_thomas, lu
@@ -414,8 +487,8 @@ def main() -> None:
         sys.exit("chip_compare: CUDA is not available")
     args = sys.argv[1:]
     if args[:1] == ["--measure"]:
-        {"sband": measure_sband, "grid": measure_grid}.get(
-            args[1], measure)(Path(args[2]))
+        {"sband": measure_sband, "grid": measure_grid,
+         "pcr": measure_pcr}.get(args[1], measure)(Path(args[2]))
         return
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -425,7 +498,7 @@ def main() -> None:
     if args[:1] == ["--mma"]:
         mma_rates()
         args = args[1:]
-    elif args[:1] in (["--sband"], ["--grid"]):
+    elif args[:1] in (["--sband"], ["--grid"], ["--pcr"]):
         mode, args = args[0][2:], args[1:]
     if not args:
         sys.exit("chip_compare: name at least one ROOT")

@@ -341,8 +341,11 @@ def rel_diff(x: torch.Tensor, ref: torch.Tensor) -> float:
 
 
 def phase_kernels(pcr, tridiag):
-    """PCR kernel vs the plain PCR on the same CUDA tensors."""
+    """PCR kernel vs the plain PCR (the function, ``KERNEL_RTOL``) and vs
+    the plain version of its own algorithm (``thomas_pcr_solve``, the same
+    bound) on the same CUDA tensors."""
     gen = torch.Generator(device="cuda").manual_seed(0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     worst = {}
     for dtype in (torch.float32, torch.float64):
         for n, B in KERNEL_SHAPES:
@@ -355,17 +358,24 @@ def phase_kernels(pcr, tridiag):
             check(bool(torch.isfinite(got).all()),
                   f"pcr_solve non-finite at n={n} B={B} {dtype}")
             err = rel_diff(got, want)
+            del want
+            err_algo = rel_diff(got, pcr.thomas_pcr_solve(*bands))
+            cfg = pcr.launch_config(B, n, got.element_size(), sms)
             emit({"phase": "kernel_check", "kernel": "pcr_solve", "n": n,
                   "B": B, "dtype": str(dtype), "max_rel_diff": err,
+                  "max_rel_diff_vs_thomas_pcr": err_algo,
                   "tol": KERNEL_RTOL[dtype],
-                  "variant": "shared" if pcr.launch_config(
-                      B, n, got.element_size()).scratch_elems == 0
-                  else "global_scratch"})
+                  "variant": "shared" if cfg.scratch_elems == 0
+                  else "global_scratch", "launch": repr(cfg)})
             check(err <= KERNEL_RTOL[dtype],
                   f"pcr_solve differs from the plain PCR by {err:.3e} at "
                   f"n={n} B={B} {dtype}")
-            worst[dtype] = max(worst.get(dtype, 0.0), err)
-            del bands, got, want
+            check(err_algo <= KERNEL_RTOL[dtype],
+                  f"pcr_solve differs from thomas_pcr_solve by "
+                  f"{err_algo:.3e} at n={n} B={B} {dtype}")
+            worst[dtype] = max(worst.get(dtype, 0.0), err, err_algo)
+            del bands, got
+            torch.cuda.empty_cache()
 
     timing = {}
     for dtype in (torch.float32, torch.float64):
@@ -383,16 +393,24 @@ def phase_kernels(pcr, tridiag):
             lambda c: torch.diag_embed(d[:c]) + torch.diag_embed(
                 dl[:c, 1:], -1) + torch.diag_embed(du[:c, :-1], 1),
             lambda c: b[:c].unsqueeze(-1), BATCH, LADDER_RUNGS, dtype)
-        n = LADDER_RUNGS
-        bound = bound_ms(14.0 * n * math.ceil(math.log2(n)) * BATCH,
-                         5 * n * BATCH * got.element_size(), dtype)
+        bound = pcr_bound(LADDER_RUNGS, BATCH, dtype)
         timing[dtype] = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
                          "max_abs_err": max_abs, **lib, **bound}
         emit({"phase": "kernel_time", "kernel": "pcr_solve", "n": LADDER_RUNGS,
               "B": BATCH, "dtype": str(dtype), "kernel_ms": [k1, k2],
-              "plain_ms": [p1, p2], "max_abs_err": max_abs, **lib, **bound})
+              "plain_ms": [p1, p2], "max_abs_err": max_abs,
+              "launch": repr(pcr.launch_config(BATCH, LADDER_RUNGS,
+                                               got.element_size(), sms)),
+              **lib, **bound})
         del bands, got, want
     return worst, timing
+
+
+def pcr_bound(n: int, B: int, dtype) -> dict:
+    """PCR's bound: 5 values a row moved (4 bands read, x written), and the
+    8 flops a row of an O(n) tridiagonal solve (Thomas)."""
+    return bound_ms(8.0 * n * B, 5 * n * B * (torch.finfo(dtype).bits // 8),
+                    dtype)
 
 
 def random_sband(B: int, n: int, w: int, n_rhs: int, dtype, gen):
@@ -1527,9 +1545,9 @@ def fused_cg_inputs(B, h, w, dtype, gen):
 
 def fused_cg_errors(fc, p, x, r, lp, alpha, mean_p, weight=1.0) -> dict:
     """Each output of both kernels against its plain version on the same
-    CUDA tensors: fields relative to max|plain|, each tile's partial sums
-    relative to that tile's sum of |terms| (both sum up to 2048 terms, in a
-    fixed tree and in torch's order)."""
+    CUDA tensors: fields relative to max|plain|, each part's (S) or tile's
+    (U) partial sums relative to its sum of |terms| (the kernels sum in a
+    fixed order, the plain versions in torch's)."""
     out = {}
     got_lp, got_part = fc.stencil_partials(p, weight=weight)
     got_u = fc.update_partials(x, r, p, lp, alpha, mean_p)
@@ -1544,8 +1562,8 @@ def fused_cg_errors(fc, p, x, r, lp, alpha, mean_p, weight=1.0) -> dict:
               f"fused CG {name}: shape {tuple(got.shape)} or non-finite")
         scale = float(want.abs().max()) or 1.0
         out[name] = float((got - want).abs().max()) / scale
-    scales = {"sum_p_lp": fc._tile_sums((p * want_lp).abs()),
-              "sum_p": fc._tile_sums(p.abs()), "sum_r2": want_u[2]}
+    scales = {"sum_p_lp": fc.part_sums((p * want_lp).abs()),
+              "sum_p": fc.part_sums(p.abs()), "sum_r2": want_u[2]}
     for name, got, want in (
             ("sum_p_lp", got_part[..., 0], want_part[..., 0]),
             ("sum_p", got_part[..., 1], want_part[..., 1]),
@@ -1560,15 +1578,16 @@ def fused_cg_errors(fc, p, x, r, lp, alpha, mean_p, weight=1.0) -> dict:
     return out
 
 
-def fused_cg_bound(fc, name: str, B: int, h: int, w: int, dtype) -> dict:
-    """Bytes (inputs read once, outputs written once, partials included)
-    and operations of one fused CG kernel call: S forms Lp (6 flops a
-    cell) and two sums (3); U two AXPYs and a sum of squares (7)."""
+def fused_cg_bound(name: str, B: int, h: int, w: int, dtype,
+                   parts: int) -> dict:
+    """Bytes (inputs read once, outputs written once, the ``parts`` partial
+    slots of a sample included) and operations of one fused CG kernel
+    call: S forms Lp (6 flops a cell) and two sums (3); U two AXPYs and a
+    sum of squares (7)."""
     n, item = B * h * w, torch.finfo(dtype).bits // 8
-    tiles = B * fc.n_tiles(h, w)
     values, flops = {
-        "stencil_partials": (2 * n + 2 * tiles, 9 * n),
-        "update_partials": (6 * n + 2 * B + tiles, 7 * n),
+        "stencil_partials": (2 * n + 2 * B * parts, 9 * n),
+        "update_partials": (6 * n + 2 * B + B * parts, 7 * n),
     }[name]
     return bound_ms(flops, values * item, dtype)
 
@@ -1636,6 +1655,7 @@ def phase_fused_cg_kernels(fc):
                                                      mean_p)),
             }
             for name, (kernel, plain) in calls.items():
+                parts = kernel()[-1].shape[1]
                 # Alternate plain, kernel, kernel, plain.
                 p1 = event_median_ms(plain)
                 k1 = event_median_ms(kernel)
@@ -1643,7 +1663,7 @@ def phase_fused_cg_kernels(fc):
                 p2 = event_median_ms(plain)
                 t = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
                      "max_abs_err": max_abs[name], "library_ms": None,
-                     **fused_cg_bound(fc, name, B, h, w, dtype)}
+                     **fused_cg_bound(name, B, h, w, dtype, parts)}
                 timing[(name, (B, h, w), dtype)] = t
                 emit({"phase": "kernel_time", "kernel": name, "B": B,
                       "h": h, "w": w, "dtype": str(dtype),
@@ -1865,7 +1885,7 @@ GRID_TRACE_NAMES = {
     "vcycle": ("vcycle_block", "subtract_mean", "vcycle_cluster"),
     "vcycle_cluster": ("vcycle_cluster",),
     "jacobi_cluster": ("jacobi_cluster",),
-    "stencil_partials": ("stencil_partials_tiled",),
+    "stencil_partials": ("stencil_partials_strip",),
     "update_partials": ("update_partials_tiled",),
 }
 
@@ -1937,7 +1957,7 @@ def read_grid_trace(events, labels, launches):
     the wrappers' launches in it, or spans that traced different
     kernels."""
     kernels, syncs = split_trace(events, labels)
-    kinds = {"stencil_partials": ("stencil_partials_tiled",),
+    kinds = {"stencil_partials": ("stencil_partials_strip",),
              "update_partials": ("update_partials_tiled",),
              "vcycle_cluster": ("vcycle_cluster",),
              "vcycle_block": ("vcycle_block",),

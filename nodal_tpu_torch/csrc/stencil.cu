@@ -91,8 +91,14 @@ namespace cg = cooperative_groups;
 
 using nodal_grid::block_sum;
 using nodal_grid::ceil_div;
+using nodal_grid::copy_async;
+using nodal_grid::copy_commit;
+using nodal_grid::copy_wait;
 using nodal_grid::lap_point;
 using nodal_grid::mirror;
+using nodal_grid::reflect;
+using nodal_grid::Vec2;
+using nodal_grid::warp_sum;
 
 constexpr int kThreads = 256;      // tiled kernels
 constexpr int kBlockThreads = 512; // single-block, cluster kernels (see pcr.cu)
@@ -273,17 +279,6 @@ __global__ void __launch_bounds__(kBlockThreads)
 constexpr int kStripCols = 128;  // coarse columns (threads) a strip block
 constexpr int kRingGroups = 4;   // ring slots, two fine rows each
 
-template <typename T>
-struct Vec2;
-template <>
-struct Vec2<float> {
-  using type = float2;
-};
-template <>
-struct Vec2<double> {
-  using type = double2;
-};
-
 // The fine ring row of a launch whose copies move kV values: the strip's
 // 2 kStripCols fine columns and kHalo (>= 2, a multiple of kV) each side.
 template <int kV>
@@ -293,35 +288,6 @@ struct RowWindow {
 };
 // A coarse ring row: the strip's coarse columns and one each side.
 constexpr int kCoarseWidth = kStripCols + 2;
-
-template <int kBytes>
-__device__ __forceinline__ void copy_async(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if constexpr (kBytes == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-                 "l"(src)
-                 : "memory");
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
-                 "l"(src), "n"(kBytes)
-                 : "memory");
-  }
-}
-__device__ __forceinline__ void copy_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// Until at most N of this thread's latest groups are in flight.
-template <int N>
-__device__ __forceinline__ void copy_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Row q of an n-row field, q in [-2, n + 1], reflected once: -1 -> 0,
-// -2 -> 1, n -> n - 1, n + 1 -> n - 2 (n >= 2, or n >= 1 for q in
-// [-1, n]).  Only a segment at the field's top or bottom takes a branch.
-__device__ __forceinline__ int reflect(int q, int n) {
-  return q < 0 ? -1 - q : (q >= n ? 2 * n - 1 - q : q);
-}
 
 // Fine row q of a field into a ring row (columns c0 - kHalo ...): the
 // chunks of kV values inside [0, w) (w % kV == 0, so a chunk is all in or
@@ -684,15 +650,6 @@ size_t vcycle_smem_values(const Levels& lv) {
     v += l == 0 ? n : 2 * n;  // x of every level, r below the entry
   }
   return v;
-}
-
-// Sum over a warp of each lane's s by a fixed xor tree: every lane gets the
-// same value (addition commutes), bit for bit from run to run.
-template <typename T>
-__device__ __forceinline__ T warp_sum(T s) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-  return s;
 }
 
 // A coarsest level of n = h w <= kWarpCoarse values, w <= 32, solved by

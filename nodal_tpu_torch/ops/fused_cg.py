@@ -7,7 +7,7 @@ Counterpart of ``nodal_tpu/ops/pallas_cg.py``; the kernels are
 float64, any h, w >= 1:
 
 * :func:`stencil_partials` — ``Lp = L_w p`` (the edge-replicate 5-point
-  Laplacian with edge weight ``weight``) and, per (sample, tile), the
+  Laplacian with edge weight ``weight``) and, per (sample, part), the
   partial sums of ``p·Lp`` and of ``p``: the matvec and its dot product in
   one pass;
 * :func:`update_partials` — ``x' = x + α p``, ``r' = r − α (Lp + mean_p)``
@@ -15,11 +15,17 @@ float64, any h, w >= 1:
   convergence dot in one pass, with ``α`` and ``mean_p`` per-sample [B]
   tensors on the fields' device.
 
-Tiles are ``TILE_H × TILE_W`` cells (the last ones ragged), numbered
-row-major; partials are ``[B, n_tiles, 2]`` and ``[B, n_tiles]``.  Each
-wrapper takes its plain version (``*_plain``) for CPU tensors and, for CUDA
-tensors, launches its kernel or raises: there is no fallback.  Each adds
-one to its ``.launches`` per launch.
+:func:`stencil_partials` cuts a field into row segments × column strips
+(:func:`plan_of`; on the card :func:`partials_plan`: strips of
+``STRIP_THREADS`` 16-byte columns, as many segments as fill the card for
+one sample, the same for every B), its parts numbered by segment, then
+strip; partials are ``[B, parts, 2]``.
+:func:`update_partials` cuts it into ``TILE_H × TILE_W`` tiles (the last
+ones ragged), numbered row-major; partials are ``[B, n_tiles]``.  Each
+plain version (``*_plain``) takes its kernel's partition.  Each wrapper
+takes its plain version for CPU tensors and, for CUDA tensors, launches
+its kernel or raises: there is no fallback.  Each adds one to its
+``.launches`` per launch.
 
 :func:`fused_grid_cg` is the JAX package's ``fused_grid_cg`` over a batch:
 the preconditioned CG on ``A = L + mean`` whose step takes α and mean p
@@ -29,36 +35,97 @@ second's.
 
 from __future__ import annotations
 
+import functools
+from dataclasses import dataclass
+
 import torch
 import torch.nn.functional as F
 
 from nodal_tpu_torch.ops import stencil
 from nodal_tpu_torch.ops.cg import SolveInfo, _dot, _per_sample, _safe_div
 
-#: Tile of both kernels; must match ``kTileH`` and ``kTileW`` in cg.cu.
+#: Tile of ``update_partials``; must match ``kTileH`` and ``kTileW`` in
+#: cg.cu.
 TILE_H = 32
 TILE_W = 64
 
+#: Threads of a ``stencil_partials`` strip block, each forming 16 bytes of
+#: columns (``kStripThreads`` in cg.cu).
+STRIP_THREADS = 128
+
 
 def n_tiles(h: int, w: int) -> int:
-    """Tiles of an h×w field: the partials' second dimension."""
+    """Tiles of an h×w field: ``update_partials``' second dimension."""
     return -(-h // TILE_H) * -(-w // TILE_W)
+
+
+@dataclass(frozen=True)
+class PartialsPlan:
+    """How ``stencil_partials`` cuts an h×w field: ``strips`` column strips
+    of ``strip_cols`` columns and ``segments`` row segments of ``segment``
+    rows (the last strip and segment may be shorter)."""
+
+    strip_cols: int
+    segment: int
+    strips: int
+    segments: int
+
+    @property
+    def parts(self) -> int:
+        return self.strips * self.segments
+
+
+@functools.cache
+def partials_plan(h: int, w: int, itemsize: int, sms: int) -> PartialsPlan:
+    """``stencil_partials``' partition of an h×w field on a card of ``sms``
+    SMs: segments as long as ``stencil.STRIP_BLOCKS_PER_SM`` blocks an SM
+    for one sample allow, down to one row.  It does not depend on the
+    batch, so a sample's partials are the same alone or in a batch."""
+    cols = STRIP_THREADS * (16 // itemsize)
+    strips = -(-w // cols)
+    seg = max(1, -(-h * strips // (stencil.STRIP_BLOCKS_PER_SM * sms)))
+    segments = -(-h // seg)
+    return PartialsPlan(cols, -(-h // segments), strips, segments)
+
+
+def plan_of(p: torch.Tensor) -> PartialsPlan:
+    """``stencil_partials``' partition of a [B, h, w] field: on CUDA
+    :func:`partials_plan` for its card; on the CPU, where no kernel runs,
+    ``update_partials``' ``TILE_H × TILE_W`` tiles, so that the CPU path
+    rounds its sums as the plain versions always have."""
+    h, w = p.shape[1], p.shape[2]
+    if p.device.type != "cuda":
+        return PartialsPlan(TILE_W, TILE_H, -(-w // TILE_W), -(-h // TILE_H))
+    return partials_plan(h, w, p.element_size(), stencil._sm_count(p.device))
+
+
+def _block_sums(f: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """Sums of [B, h, w] fields over blocks of rows × cols, [B, blocks]
+    row-major (the last blocks ragged)."""
+    B, h, w = f.shape
+    bh, bw = -(-h // rows), -(-w // cols)
+    f = F.pad(f, (0, bw * cols - w, 0, bh * rows - h))
+    return f.reshape(B, bh, rows, bw, cols).sum(dim=(2, 4)).reshape(
+        B, bh * bw)
 
 
 def _tile_sums(f: torch.Tensor) -> torch.Tensor:
     """Per-tile sums of [B, h, w] fields, [B, n_tiles]."""
-    B, h, w = f.shape
-    th, tw = -(-h // TILE_H), -(-w // TILE_W)
-    f = F.pad(f, (0, tw * TILE_W - w, 0, th * TILE_H - h))
-    return f.reshape(B, th, TILE_H, tw, TILE_W).sum(dim=(2, 4)).reshape(
-        B, th * tw)
+    return _block_sums(f, TILE_H, TILE_W)
+
+
+def part_sums(f: torch.Tensor) -> torch.Tensor:
+    """Sums of [B, h, w] fields over ``stencil_partials``' parts on f's
+    device (:func:`plan_of`), [B, parts]."""
+    plan = plan_of(f)
+    return _block_sums(f, plan.segment, plan.strip_cols)
 
 
 # ------------------------------------------------------------ plain versions
 
 def stencil_partials_plain(p, *, weight: float = 1.0):
     lp = stencil._lap(p, weight)
-    return lp, torch.stack([_tile_sums(p * lp), _tile_sums(p)], dim=-1)
+    return lp, torch.stack([part_sums(p * lp), part_sums(p)], dim=-1)
 
 
 def update_partials_plain(x, r, p, lp, alpha, mean_p):
@@ -84,19 +151,22 @@ def _raise_on(err: int, what: str, shape, dtype) -> None:
 
 
 def stencil_partials(p: torch.Tensor, *, weight: float = 1.0):
-    """``(Lp, partials [B, n_tiles, 2])``: partial 0 Σ p·Lp, 1 Σ p."""
+    """``(Lp, partials [B, parts, 2])``: partial 0 Σ p·Lp, 1 Σ p, over the
+    parts of :func:`plan_of`."""
     stencil._check("stencil_partials", p)
     if p.device.type == "cpu":
         return stencil_partials_plain(p, weight=weight)
     B, h, w = p.shape
+    plan = plan_of(p)
     lp = torch.empty_like(p)
-    part = torch.empty(B, n_tiles(h, w), 2, dtype=p.dtype, device=p.device)
+    part = torch.empty(B, plan.parts, 2, dtype=p.dtype, device=p.device)
     if p.numel() == 0:
         return lp, part.zero_()
+    wide = w * p.element_size() % 16 == 0 and p.data_ptr() % 16 == 0
     with torch.cuda.device(p.device):
         err = _launcher("stencil_partials", p.dtype)(
-            p.data_ptr(), lp.data_ptr(), part.data_ptr(), B, h, w, weight,
-            stencil._stream(p))
+            p.data_ptr(), lp.data_ptr(), part.data_ptr(), B, h, w,
+            plan.segment, int(wide), weight, stencil._stream(p))
     _raise_on(err, "stencil_partials", tuple(p.shape), p.dtype)
     stencil_partials.launches += 1
     return lp, part

@@ -77,7 +77,7 @@ _SIGNATURES = {
     **{name: ([_P] * 3 + [_I, _LL, _P], _I)
        for name in ("stencil_subtract_mean_f32",
                     "stencil_subtract_mean_f64")},
-    **{name: ([_P] * 3 + [_I] * 3 + [_D, _P], _I)
+    **{name: ([_P] * 3 + [_I] * 5 + [_D, _P], _I)
        for name in ("cg_stencil_partials_f32", "cg_stencil_partials_f64")},
     **{name: ([_P] * 9 + [_I] * 3 + [_P], _I)
        for name in ("cg_update_partials_f32", "cg_update_partials_f64")},

@@ -61,7 +61,7 @@ def test_stencil_partials_matches_pallas():
     (p,) = _fields(0, (H, W))
     lp_ref, part_ref = jpc.stencil_partials(jnp.asarray(p), weight=2.0)
     lp, part = fused_cg.stencil_partials(_t(p), weight=2.0)
-    assert part.shape == (1, fused_cg.n_tiles(H, W), 2)
+    assert part.shape == (1, fused_cg.plan_of(_t(p)).parts, 2)
     np.testing.assert_allclose(lp[0].numpy(), np.asarray(lp_ref), rtol=1e-5,
                                atol=1e-5)
     sums = part[0].sum(dim=0).numpy()
@@ -86,10 +86,20 @@ def test_update_partials_matches_pallas():
                                float(jnp.sum(want[2][:, 0])), rtol=1e-4)
 
 
+def _parts(plan, h, w):
+    """stencil_partials' parts of an h×w field: (rows, columns) slices in
+    the order of the partials (segment, then strip)."""
+    return [(slice(i, min(i + plan.segment, h)),
+             slice(j, min(j + plan.strip_cols, w)))
+            for i in range(0, h, plan.segment)
+            for j in range(0, w, plan.strip_cols)]
+
+
 @pytest.mark.parametrize("h,w", [(5, 7), (33, 65), (64, 128)])
 def test_plain_versions_match_dense_laplacian_per_tile(h, w):
-    """f64, ragged tiles included: Lp = L p, and each tile's partials are
-    that tile's own sums."""
+    """f64, ragged tiles included: Lp = L p, each part's S partials (on
+    the CPU the tiles) are that part's own sums and each tile's U partial
+    its own."""
     p, x, r = (torch.as_tensor(a) for a in _fields(h * w, *[(2, h, w)] * 3,
                                                  dtype=np.float64))
     L = grid._dense_laplacian(h, w, 1.5)
@@ -98,7 +108,9 @@ def test_plain_versions_match_dense_laplacian_per_tile(h, w):
     mean_p = torch.tensor([0.01, 0.2], dtype=torch.float64)
     x_new, r_new, part_u = fused_cg.update_partials(x, r, p, lp, alpha,
                                                     mean_p)
-    assert part.shape == (2, fused_cg.n_tiles(h, w), 2)
+    plan = fused_cg.plan_of(p)
+    assert part.shape == (2, plan.parts, 2)
+    assert part_u.shape == (2, fused_cg.n_tiles(h, w))
     for b in range(2):
         want = (L @ p[b].reshape(-1).numpy()).reshape(h, w)
         np.testing.assert_allclose(lp[b].numpy(), want, rtol=0,
@@ -106,20 +118,80 @@ def test_plain_versions_match_dense_laplacian_per_tile(h, w):
         rn = r[b] - alpha[b] * (lp[b] + mean_p[b])
         assert torch.equal(r_new[b], rn)
         assert torch.equal(x_new[b], x[b] + alpha[b] * p[b])
+        for t, (i, j) in enumerate(_parts(plan, h, w)):
+            got = [float(part[b, t, 0]), float(part[b, t, 1])]
+            expect = [float((p[b, i, j] * lp[b, i, j]).sum()),
+                      float(p[b, i, j].sum())]
+            np.testing.assert_allclose(got, expect, rtol=1e-12, atol=1e-12)
         tiles = [(i, j) for i in range(0, h, fused_cg.TILE_H)
                  for j in range(0, w, fused_cg.TILE_W)]
         for t, (i, j) in enumerate(tiles):
-            sl = (b, slice(i, i + fused_cg.TILE_H),
+            sl = (slice(i, i + fused_cg.TILE_H),
                   slice(j, j + fused_cg.TILE_W))
-            expect = [float((p[sl] * lp[sl]).sum()), float(p[sl].sum()),
-                      float((rn[sl[1:]] ** 2).sum())]
-            got = [float(part[b, t, 0]), float(part[b, t, 1]),
-                   float(part_u[b, t])]
-            np.testing.assert_allclose(got, expect, rtol=1e-12, atol=1e-12)
+            np.testing.assert_allclose(float(part_u[b, t]),
+                                       float((rn[sl] ** 2).sum()),
+                                       rtol=1e-12, atol=1e-12)
         np.testing.assert_allclose(
             float(part[b, :, 0].sum()),
             float(p[b].reshape(-1) @ torch.as_tensor(L) @ p[b].reshape(-1)),
             rtol=1e-12)
+
+
+@pytest.mark.parametrize("h,w,itemsize,sms", [
+    (1024, 1024, 4, 132), (1024, 1024, 8, 132), (4096, 4096, 4, 132),
+    (4096, 4096, 8, 132), (1022, 1022, 4, 132), (2, 2, 4, 132),
+    (3, 5, 8, 132), (100000, 3, 4, 132), (512, 512, 4, 114)])
+def test_partials_plan(h, w, itemsize, sms):
+    """Strips of 128 threads × 16 bytes, segments for about 4 blocks an SM
+    on one sample (not fewer than needed, never more than h), covering the
+    field once and within the CUDA grid's limits."""
+    plan = fused_cg.partials_plan(h, w, itemsize, sms)
+    assert plan.strip_cols == fused_cg.STRIP_THREADS * 16 // itemsize
+    assert plan.strips == -(-w // plan.strip_cols)
+    assert plan.segments == -(-h // plan.segment) <= stencil.MAX_GRID_Y
+    assert plan.segment * (plan.segments - 1) < h <= plan.segment * (
+        plan.segments)
+    blocks = stencil.STRIP_BLOCKS_PER_SM * sms
+    assert plan.parts <= blocks or plan.segment == 1
+    if plan.segment > 1:
+        assert plan.strips * (plan.segments + plan.strips) > blocks // 2
+    assert plan.parts == plan.strips * plan.segments
+
+
+@pytest.mark.parametrize("h,w,dtype", [(7, 300, np.float64),
+                                       (9, 1030, np.float32),
+                                       (130, 20, np.float64)])
+def test_partials_strip_parts(h, w, dtype):
+    """The sums on the card's strip partition (several strips and
+    segments, for cards of 1, 16 and 132 SMs), in the partials' order,
+    against the dense Laplacian's terms part by part."""
+    (p,) = _fields(h + w, (1, h, w), dtype=np.float64)
+    lp = (grid._dense_laplacian(h, w, 1.0) @ p.reshape(-1)).reshape(h, w)
+    terms = torch.as_tensor(p * lp)
+    for sms in (1, 16, 132):
+        plan = fused_cg.partials_plan(h, w, np.dtype(dtype).itemsize, sms)
+        sums = fused_cg._block_sums(terms, plan.segment, plan.strip_cols)
+        assert sums.shape == (1, plan.parts)
+        for t, (i, j) in enumerate(_parts(plan, h, w)):
+            np.testing.assert_allclose(float(sums[0, t]),
+                                       float((p[0, i, j] * lp[i, j]).sum()),
+                                       rtol=1e-12, atol=1e-12)
+        np.testing.assert_allclose(float(sums.sum()), float(
+            (p[0] * lp).sum()), rtol=1e-12, atol=1e-12)
+
+
+def test_partials_plan_does_not_depend_on_the_batch():
+    """The plan takes no B, so a sample's partials are the same alone or in
+    a batch; on the CPU the partition is update_partials' tiles."""
+    f = torch.as_tensor(np.stack(_fields(3, *[(40, 600)] * 3)))
+    plan = fused_cg.partials_plan(40, 600, 4, 132)
+    assert plan.strips == 2 and plan.segment == 1
+    lp, part = fused_cg.stencil_partials(f, weight=0.7)
+    assert fused_cg.plan_of(f) == fused_cg.PartialsPlan(
+        fused_cg.TILE_W, fused_cg.TILE_H, 10, 2)
+    for k in range(3):
+        lp1, part1 = fused_cg.stencil_partials(f[k:k + 1], weight=0.7)
+        assert torch.equal(lp[k], lp1[0]) and torch.equal(part[k], part1[0])
 
 
 def _mean_zero_field(h, w, dtype):
@@ -224,7 +296,7 @@ def test_kernels_are_built_with_the_library():
     names = [p.name for p in kernels._sources()]
     assert "cg.cu" in names and "grid_common.cuh" in names
     src = (kernels.CSRC_DIR / "cg.cu").read_text()
-    for name, n_args in (("stencil_partials", 8), ("update_partials", 13)):
+    for name, n_args in (("stencil_partials", 10), ("update_partials", 13)):
         for suffix in ("f32", "f64"):
             full = f"cg_{name}_{suffix}"
             argtypes, _ = kernels._SIGNATURES[full]
@@ -233,6 +305,7 @@ def test_kernels_are_built_with_the_library():
     consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
     assert int(consts["kTileH"]) == fused_cg.TILE_H
     assert int(consts["kTileW"]) == fused_cg.TILE_W
+    assert int(consts["kStripThreads"]) == fused_cg.STRIP_THREADS
     for cu in ("cg.cu", "stencil.cu"):
         assert '#include "grid_common.cuh"' in (
             kernels.CSRC_DIR / cu).read_text()

@@ -1,9 +1,20 @@
 """Parity of the port's tridiagonal assembly and PCR with the JAX package,
-and the CPU side of the CUDA kernel's wrapper (dispatch, checks, launch
-policy, build errors)."""
+the plain version of the CUDA kernel's algorithm (``thomas_pcr_solve``)
+against the JAX PCR and a scipy f64 banded solve, and the CPU side of the
+CUDA kernel's wrapper (dispatch, checks, launch policy, layout, build
+errors).
+
+Tolerances: 1e-5 (f32) and 1e-12 (f64) of max|x| against the JAX PCR, the
+same systems rounded in another order (FMA-free torch against XLA); the
+same bounds against scipy's f64 LAPACK solve, which for these diagonally
+dominant systems sits within a few ulps of the exact answer.
+"""
+
+import re
 
 import numpy as np
 import pytest
+import scipy.linalg as sla
 
 torch = pytest.importorskip("torch")
 
@@ -20,6 +31,18 @@ from nodal_tpu_torch.utils import kernels  # noqa: E402
 from nodal_tpu_torch.utils.gridgen import ladder_rows  # noqa: E402
 
 RTOL = {np.float32: 1e-5, np.float64: 1e-12}
+THOMAS_PCR_N = [1, 2, 3, 31, 32, 33, 63, 64, 65, 1000, 4097]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for these small tensors: beside other test
+    processes the default pool oversubscribes the cores, and each tiny
+    parallel region then waits on the others."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _bands(B, n, dtype, seed=0):
@@ -106,25 +129,99 @@ def test_pcr_wrapper_rejects_bad_input(bad):
 @pytest.mark.parametrize("itemsize", [4, 8])
 @pytest.mark.parametrize("n", [1, 3, 1000, 1024, 2048, 4096, 4097, 20000])
 def test_pcr_launch_config(n, itemsize):
-    B = 16384
-    cfg = pcr.launch_config(B, n, itemsize)
-    assert cfg.m >= n and cfg.m & (cfg.m - 1) == 0
-    assert cfg.threads % 32 == 0 and cfg.threads <= pcr.MAX_THREADS
-    per_system = 8 * cfg.m * itemsize
+    B, sms = 16384, 132
+    cfg = pcr.launch_config(B, n, itemsize, sms)
+    v = 16 // itemsize
+    assert cfg.k >= 2 and cfg.k % v == 0 and pcr.LANES * cfg.k >= n
+    assert pcr.LANES * (cfg.k - v) < max(n, pcr.LANES)  # no whole spare unit
+    assert 1 <= cfg.warps <= pcr.MAX_WARPS
+    per_system = pcr.system_bytes(n, itemsize)
     if per_system <= pcr.SMEM_BYTES_MAX:
-        # Shared-memory variant: one block per system.
-        assert (cfg.grid, cfg.smem_bytes, cfg.scratch_elems) == (
-            B, per_system, 0)
+        # Shared-memory variant: one buffer a warp, as many warps an SM as
+        # buffers fit it (in blocks of at most MAX_WARPS).
+        assert cfg.smem_bytes == cfg.warps * per_system <= pcr.SMEM_BYTES_MAX
+        assert cfg.scratch_elems == 0
+        per_sm = min(pcr.MAX_WARPS_PER_SM, pcr.SMEM_SM_BYTES // (
+            per_system + pcr.SMEM_BLOCK_RESERVED))
+        blocks = cfg.grid // sms
+        assert cfg.grid == sms * blocks and blocks * cfg.warps <= per_sm
+        assert blocks * (cfg.smem_bytes + pcr.SMEM_BLOCK_RESERVED) <= (
+            pcr.SMEM_SM_BYTES)
+        assert (blocks + 1) * cfg.warps > per_sm or cfg.warps == (
+            pcr.MAX_WARPS)
     else:
-        # Past the shared-memory cap the kernel runs on global scratch.
+        # Past it the kernel runs on one global buffer a warp.
         assert cfg.smem_bytes == 0
-        assert 1 <= cfg.grid <= B
-        assert cfg.scratch_elems == cfg.grid * 8 * cfg.m
+        assert cfg.warps == pcr.SCRATCH_WARPS
+        assert 1 <= cfg.grid <= -(-B // cfg.warps)
+        assert cfg.scratch_elems * itemsize == (cfg.grid * cfg.warps
+                                                * per_system)
         assert cfg.scratch_elems * itemsize <= max(pcr.SCRATCH_BYTES_MAX,
-                                                   per_system)
+                                                   cfg.warps * per_system)
     # The main path's chain (n = 1000) stays in shared memory in both types.
     if n == 1000:
         assert cfg.scratch_elems == 0
+    # A small batch asks for no more warps than systems.
+    assert pcr.launch_config(3, n, itemsize, sms).warps <= 3
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("n", [1, 33, 1000, 4097])
+def test_pcr_layout_reads_take_four_wavefronts(n, itemsize):
+    """A warp reads one 16-byte unit of every chunk at once: each quarter
+    warp's 8 units lie in 8 distinct groups of 4 banks."""
+    k = pcr.chunk_rows(n, itemsize)
+    units, stride = k * itemsize // 16, pcr.chunk_stride(k, itemsize)
+    assert stride % 2 == 1 and units <= stride <= units + 1
+    for q in range(units):
+        slots = [lane * stride + q for lane in range(pcr.LANES)]
+        for quarter in range(4):
+            groups = {u % 8 for u in slots[8 * quarter:8 * quarter + 8]}
+            assert len(groups) == 8
+    assert pcr.system_bytes(n, itemsize) == 4 * pcr.LANES * stride * 16
+
+
+def _scipy_solve(dl, d, du, b):
+    """Each system solved by LAPACK's banded solver in f64."""
+    out = np.empty(d.shape)
+    for i in range(d.shape[0]):
+        ab = np.zeros((3, d.shape[1]))
+        ab[0, 1:], ab[1], ab[2, :-1] = du[i, :-1], d[i], dl[i, 1:]
+        out[i] = sla.solve_banded((1, 1), ab, b[i].astype(np.float64))
+    return out
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("n", THOMAS_PCR_N)
+def test_thomas_pcr_matches_reference(n, dtype):
+    """The kernel's algorithm (chunks, the 64-row reduced system, back
+    substitution) against the JAX PCR and scipy: f32 against the Pallas
+    kernel in interpret mode, f64 against the JAX package's PCR (the
+    Pallas kernel takes f32 only here)."""
+    bands = _bands(3, n, dtype, seed=7 * n + 1)
+    got = pcr.thomas_pcr_solve(*map(torch.as_tensor, bands)).numpy()
+    assert got.dtype == dtype and got.shape == (3, n)
+    if dtype == np.float32:
+        want = np.asarray(pcr_solve_padded(*map(jnp.asarray, bands)))
+    else:
+        want = np.asarray(jtridiag.tridiag_solve(*map(jnp.asarray, bands)))
+    exact = _scipy_solve(*bands)
+    for ref in (want, exact):
+        np.testing.assert_allclose(got, ref, rtol=0,
+                                   atol=RTOL[dtype] * np.abs(ref).max())
+
+
+def test_pcr_kernel_source_matches_the_plan():
+    src = (kernels.CSRC_DIR / "pcr.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
+    assert int(consts["kMaxWarps"]) == pcr.MAX_WARPS
+    assert int(consts["kLanes"]) == pcr.LANES
+    assert int(consts["kMaxSmem"]) == pcr.SMEM_BYTES_MAX
+    assert '#include "grid_common.cuh"' in src
+    for suffix in ("f32", "f64"):
+        full = f"pcr_solve_{suffix}"
+        argtypes, _ = kernels._SIGNATURES[full]
+        assert len(argtypes) == 13 and f"int {full}(" in src
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
