@@ -45,9 +45,28 @@ fused-CG path (``grid_solve(fused_cg=True)``): its two kernels against
 their plain versions, every grid solve above and the 16 pairs through it,
 each held against the unfused kernel solve, and a profile of its 1024²
 solve.
-Last, the adjoint: ``backward()`` through each tier's solver on the card
+Then the adjoint: ``backward()`` through each tier's solver on the card
 against the same solver's gradient on the CPU and a dense f64 autograd
-oracle, with the tier's kernel launched in the backward pass.
+oracle, with the tier's kernel launched in the backward pass.  Last, the
+user-facing analysis:
+
+* ``Circuit.solve()`` on the card (BASELINE configs 1–3 and the other
+  example netlists, f64 and f32) against the port on the CPU and a numpy
+  f64 dense solve, ``examples/unconnected_*.csv``, and the band route's
+  single solves (the 100×100 mesh and the 20×10×10 lattice: one
+  block-Thomas host loop a solve at B = 1) against scipy's sparse LU, with
+  each solve's latency on the card and on the CPU and the band solves'
+  device time by kernel name;
+* both command lines (``solver_cli``, ``equiv_cli``) on the card against
+  ``--device cpu``;
+* ``monte_carlo``: BASELINE config 4 (10,000 samples of the 256-node
+  ladder, every resistor at 5 %, the PCR kernel) against ``_mc_run`` on
+  the CPU with the same draws, and the mesh and branch sweeps at 4096
+  samples (scalar-band kernel), each bit for bit by seed, with its f64
+  audit and solves/s;
+* ``sensitivities`` on the ladder, mesh, branch and 1.6.1 circuits against
+  the CPU and central differences, the tier's kernel launched by the
+  adjoint.
 
 Each kernel is also timed against its plain version, against one PyTorch
 call that computes the same function (``torch.linalg.solve`` on the dense
@@ -63,8 +82,10 @@ Exits non-zero without a result when CUDA is unavailable or when the
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
+import logging
 import math
 import re
 import shutil
@@ -85,13 +106,16 @@ BATCH = 16384
 SWEEP_SIGMA = 0.05          # relative std of the parameter perturbations
 CONTRACT_TOL = 1e-6         # node-voltage contract of refine="auto"
 KERNEL_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+# (n, B): the last is the ladder of BASELINE config 4's Monte Carlo, 10,000
+# samples of 256 nodes.
 KERNEL_SHAPES = [(n, b) for n in (1, 2, 3, 1000, 1024, 2048, 4097)
-                 for b in (1, 7, BATCH)] + [(20000, 8)]
+                 for b in (1, 7, BATCH)] + [(20000, 8), (256, 10_000)]
 
 MESH_ROWS = 25              # the JAX package bench's meshes are 25 rows tall
 MESH_NODES = 1000
 MIDSIZE_NODES = (5000, 10000)
 MIDSIZE_BATCH = 256         # bench.py --midsize-batch default
+MC_SUB_SAMPLES = 4096       # bench.py --mc-sub-samples default
 # The scalar-band kernel and its plain version run the same no-pivot
 # recurrence on diagonally dominant bands, rounded differently (fused
 # multiply-adds, the warp's reduction order).  The rounding differences
@@ -103,8 +127,10 @@ SBAND_RTOL = {torch.float32: 1e-4, torch.float64: 1e-10}
 # 16384}, n_rhs in {1, 3, the widest with W1 + n_rhs = 128}; B in
 # {1, 7, 256} (B <= 7 at n = 16384), and the mesh and branch batches.  The
 # next three sit at the edge between the kernel's register variant
-# (W1 + n_rhs <= 32) and its shared-memory variant; the last is a band
-# without couplings (w = 0).
+# (W1 + n_rhs <= 32) and its shared-memory variant; then a band without
+# couplings (w = 0); the last four are the mesh's (n_rhs 1) and the branch
+# circuit's (n_rhs 3) shapes in phase_monte_carlo (MC_SUB_SAMPLES) and
+# phase_sensitivities (B = 1).
 SBAND_SHAPES = [
     (1, 1, 1, 1), (7, 1, 56, 3), (256, 8, 8, 1), (7, 8, 1, 126),
     (256, 999, 26, 1), (256, 999, 26, 3), (7, 999, 56, 71),
@@ -112,7 +138,8 @@ SBAND_SHAPES = [
     (256, 5000, 26, 1), (7, 5000, 8, 3), (1, 5000, 1, 1),
     (256, 5000, 56, 3), (7, 16384, 26, 3), (1, 16384, 56, 71),
     (7, 16384, 1, 126), (7, 999, 30, 1), (7, 999, 31, 1), (7, 999, 3, 28),
-    (7, 999, 0, 3),
+    (7, 999, 0, 3), (MC_SUB_SAMPLES, 1000, 26, 1),
+    (MC_SUB_SAMPLES, 1000, 26, 3), (1, 1000, 26, 1), (1, 1000, 26, 3),
 ]
 SBAND_TIME_SHAPES = [(BATCH, 999, 26, 1), (MIDSIZE_BATCH, 4999, 26, 1)]
 
@@ -128,13 +155,15 @@ BAND_RTOL = {torch.float32: 1e-4, torch.float64: 1e-10}
 # (B, nb, kb, r): every kb, one to 300 block rows (300 is past the TPU
 # streaming kernel's cap of n·kb <= 32768·128), r in {1, 3, 128, 130}
 # (130 takes two launches), the main paths' shapes, and batches larger
-# than the grid (the lattice shape walks the batch in four waves).
+# than the grid (the lattice shape walks the batch in four waves); the
+# last two are phase_circuit's single solves of the 100×100 mesh and the
+# 20×10×10 lattice.
 BAND_SHAPES = [
     (1, 1, 128, 1), (7, 2, 128, 3), (GENERAL_BATCH, 16, 128, 1),
     (MIDSIZE_BATCH, 79, 128, 1), (GENERAL_BATCH, 32, 128, 3),
     (7, 16, 128, 128), (2, 300, 128, 1), (MIDSIZE_BATCH, 10, 256, 1),
     (7, 4, 256, 3), (1, 2, 256, 128), (7, 3, 384, 1), (1, 8, 384, 128),
-    (3, 4, 128, 130),
+    (3, 4, 128, 130), (1, 79, 128, 1), (1, 16, 128, 1),
 ]
 BAND_TIME_SHAPES = [(GENERAL_BATCH, 16, 128, 1), (MIDSIZE_BATCH, 79, 128, 1),
                     (MIDSIZE_BATCH, 10, 256, 1)]
@@ -228,6 +257,42 @@ KNIGHT_R = 4 / math.pi - 0.5  # the infinite grid's knight's-move resistance
 # differ by at most twice the bound.
 ADJOINT_BATCH = 8
 ADJOINT_F64_TOL = 1e-9
+
+# The single solve (BASELINE configs 1–3): these example netlists through
+# Circuit.solve() on the card, in f64 within CIRCUIT_F64_RTOL of max|x| of
+# the port on the CPU and of a numpy f64 dense solve (two pivoted LUs,
+# cuSOLVER and LAPACK, on systems of condition up to ~1e12 for the OPMODEL
+# circuits: ~1e-16·κ at worst, under 1e-10 as the JAX package's goldens
+# have it); in f32 each answer's residual under Circuit's own f32 gate.
+CIRCUIT_EXAMPLES = ("netlist.csv", "1.6.1.csv", "opmodel_amplifier.csv",
+                    "opmodel_voltage_buffer.csv", "divider.csv",
+                    "buffer.csv")
+CIRCUIT_F64_RTOL = 1e-10
+# The band route's single solves against scipy's sparse LU (both f64 direct
+# solves of systems with κ up to ~1e5): 1e-9 of max|x|.
+BAND_SOLVE_RTOL = 1e-9
+# The CLIs on the card and on the CPU: the same lines, values within this
+# much of the largest printed value.
+CLI_RTOL = 1e-12
+# BASELINE config 4: a Monte Carlo of 10,000 samples of the 256-node ladder,
+# every resistor at 5 %, f32 refine="auto", seeds 1–3 after a warm-up with
+# seed 0 (bench.py:bench_monte_carlo); the mesh and branch circuits at
+# 4096 samples (bench.py --mc-sub-samples).  The card's mean and std are
+# held to _mc_run on the CPU with the same draws within MC_CPU_TOL of
+# max|mean|: both inside the 1e-6 contract of the f64 answer.
+MC_RUNGS = 256
+MC_SAMPLES = 10_000
+MC_SEEDS = (1, 2, 3)
+MC_CPU_TOL = 1e-6
+# Sensitivities: the card against the CPU within SENS_CPU_TOL of the
+# largest |entry| (two f64 solves and adjoints), and against central
+# differences of the card's own raw f64 solve (step SENS_FD_STEP relative)
+# on its three largest entries within SENS_FD_TOL of the largest |entry|
+# (truncation ~h² ≈ 1e-10; the solve's own error over h, ~1e-13·κ/h,
+# up to ~1e-8 on the mesh).
+SENS_CPU_TOL = 1e-9
+SENS_FD_STEP = 1e-5
+SENS_FD_TOL = 1e-6
 
 # Data-sheet peaks of the H100 SXM at full precision and its memory rate:
 # f32 on the CUDA cores (the tensor cores' f32 path is TF32, which is not
@@ -2203,6 +2268,393 @@ def phase_adjoint():
     return backward_launches
 
 
+def repo_wrappers():
+    """The counted wrappers of the batch and single-solve paths, by name."""
+    from nodal_tpu_torch.ops import block_thomas, lu, pcr, sband
+
+    return {w.__name__: w for w in (
+        pcr.pcr_solve, sband.sband_solve_multi,
+        block_thomas.band_solve_multi, lu.lu_factor, lu.lu_solve_factored)}
+
+
+def counted(fn):
+    """``(fn(), launches)``: every wrapper's count set to 0 just before the
+    call and read just after it (the call synchronizes first)."""
+    wrappers = repo_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: w.launches for k, w in wrappers.items()}
+
+
+def add_launches(total: dict, launches: dict) -> None:
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def sband_shape_checked(label: str) -> None:
+    """The scalar-band kernel's last launch was at a shape of
+    ``SBAND_SHAPES``, which phase_sband_kernel holds to the plain version
+    in both dtypes."""
+    from nodal_tpu_torch.ops.sband import sband_solve_multi
+
+    B, n, W1, n_rhs = sband_solve_multi.last_shape
+    check((B, n, W1 - 1, n_rhs) in SBAND_SHAPES,
+          f"{label}: sband_solve_multi launched at {(B, n, W1 - 1, n_rhs)}, "
+          "a shape no kernel check holds")
+
+
+def numpy_system(stamps):
+    """The MNA system ``(G, b)`` of the netlist's own values in numpy f64,
+    straight from ``stamp_values_np`` (no torch)."""
+    from nodal_tpu_torch.models.stamps import stamp_values_np
+
+    g, r = stamp_values_np(stamps, stamps.params.astype(np.float64))
+    G = np.zeros((stamps.n, stamps.n))
+    np.add.at(G, (stamps.g_rows, stamps.g_cols), g)
+    b = np.zeros(stamps.n)
+    np.add.at(b, stamps.rhs_rows, r)
+    return G, b
+
+
+def max_rel(x: np.ndarray, ref: np.ndarray) -> float:
+    return float(np.abs(x - ref).max() / np.abs(ref).max())
+
+
+def cli_output(main, argv) -> str:
+    """What one CLI call prints on its standard output."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    return buf.getvalue()
+
+
+def same_cli_lines(card: str, cpu: str) -> float:
+    """Fails unless the two outputs have the same lines but for the
+    values, which must agree within ``CLI_RTOL`` of the largest printed
+    value; returns the worst difference over that scale."""
+    cl, pl = card.splitlines(), cpu.splitlines()
+    check(len(cl) == len(pl) and len(cl) > 0,
+          f"CLI outputs differ in length: {card!r} / {cpu!r}")
+    split = [(c.rsplit("= ", 1), p.rsplit("= ", 1)) for c, p in zip(cl, pl)]
+    vals = [abs(float(p[1])) for c, p in split if len(p) == 2]
+    scale = max(vals, default=1.0) or 1.0
+    worst = 0.0
+    for c, p in split:
+        check(c[0] == p[0], f"CLI lines differ: {c[0]!r} / {p[0]!r}")
+        if len(p) == 2:
+            worst = max(worst, abs(float(c[1]) - float(p[1])) / scale)
+    check(worst <= CLI_RTOL, f"CLI values differ by {worst:.3e} of the "
+          f"largest: {card!r} / {cpu!r}")
+    return worst
+
+
+@contextlib.contextmanager
+def circuit_warnings_off():
+    """Circuit.solve's accuracy warning off, for repeats of a solve whose
+    first call has logged it."""
+    log = logging.getLogger("nodal_tpu_torch.circuit")
+    level = log.level
+    log.setLevel(logging.ERROR)
+    try:
+        yield
+    finally:
+        log.setLevel(level)
+
+
+def phase_circuit() -> dict:
+    """The single solve: BASELINE configs 1–3 and the error cases through
+    ``Circuit.solve()`` on the card, the band route's single solves (one
+    ``band_solve_multi`` host loop a solve at B = 1) against scipy's sparse
+    LU, each solve's host latency on the card and on the CPU, and both
+    CLIs on the card against ``--device cpu``.  Returns the launches of
+    the band route's solves."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+
+    from nodal_tpu_torch import Circuit, Netlist, UnconnectedCircuitError
+    from nodal_tpu_torch import equiv_cli, solver_cli
+    from nodal_tpu_torch.circuit import _RESIDUAL_TOL
+    from nodal_tpu_torch.models.stamps import stamp_values_np
+    from nodal_tpu_torch.ops import block_thomas
+    from nodal_tpu_torch.ops.band import band_plan
+
+    examples = ROOT / "examples"
+    for name in CIRCUIT_EXAMPLES:
+        path = str(examples / name)
+        ref = np.linalg.solve(*numpy_system(Circuit(Netlist(path)).stamps))
+        for dtype in (torch.float64, torch.float32):
+            card = Circuit(Netlist(path), dtype=dtype)
+            (sol, launched) = counted(card.solve)
+            cpu = Circuit(Netlist(path), dtype=dtype, device="cpu").solve()
+            err_ref, err_cpu = max_rel(sol.result, ref), max_rel(
+                sol.result, cpu.result)
+            with circuit_warnings_off():
+                _, card_ms = host_median_ms(card.solve)
+                _, cpu_ms = host_median_ms(Circuit(
+                    Netlist(path), dtype=dtype, device="cpu").solve)
+            emit({"phase": "circuit", "netlist": name, "dtype": str(dtype),
+                  "n": card.stamps.n, "method": sol.stats["method"],
+                  "backend": sol.stats["backend"],
+                  "residual": sol.stats["residual"],
+                  "rel_err_vs_numpy_f64": err_ref,
+                  "rel_err_vs_cpu": err_cpu, "launches": launched,
+                  "solve_ms_card": card_ms, "solve_ms_cpu": cpu_ms})
+            check(sol.stats["backend"] == "cuda",
+                  f"{name}: solved on {sol.stats['backend']}")
+            check(not any(launched.values()),
+                  f"{name}: a kernel of the repo launched on the dense "
+                  f"route: {launched}")
+            if dtype == torch.float64:
+                check(err_ref <= CIRCUIT_F64_RTOL and
+                      err_cpu <= CIRCUIT_F64_RTOL,
+                      f"{name} f64: {err_ref:.3e} from numpy, {err_cpu:.3e} "
+                      "from the CPU")
+            else:
+                check(sol.stats["residual"] <= _RESIDUAL_TOL[dtype],
+                      f"{name} f32: residual {sol.stats['residual']:.3e}")
+    sol = Circuit(Netlist(str(examples / "unconnected_0.csv"))).solve()
+    check(abs(sol.potential("3") - 12.0 / 13.0) <= 1e-12,
+          f"unconnected_0: e(3) = {sol.potential('3')}")
+    try:
+        Circuit(Netlist(str(examples / "unconnected_1.csv"))).solve()
+        fail("unconnected_1 solved")
+    except UnconnectedCircuitError:
+        pass
+    emit({"phase": "circuit_errors", "unconnected_0_e3": sol.potential("3"),
+          "unconnected_1": "UnconnectedCircuitError"})
+
+    bt = block_thomas.band_solve_multi
+    launches = 0
+    for label, rows in (("widemesh", grid_circuit_rows(100, 100)),
+                        ("lattice", lattice_rows(20, 10, 10))):
+        circuit = Circuit(Netlist.from_rows(rows))
+        stamps, plan = circuit.stamps, band_plan(circuit.stamps)
+        g, r = stamp_values_np(stamps, stamps.params.astype(np.float64))
+        A = sp.coo_matrix((g, (stamps.g_rows, stamps.g_cols)),
+                          shape=(stamps.n, stamps.n)).tocsc()
+        b = np.zeros(stamps.n)
+        np.add.at(b, stamps.rhs_rows, r)
+        ref = spla.spsolve(A, b)
+        bt.last_shape = None
+        (sol, launched) = counted(circuit.solve)
+        err = max_rel(sol.result, ref)
+        solves = 1 + 5  # host_median_ms: a warm-up and 5 timed solves
+        (timing, timed) = counted(lambda: host_median_ms(circuit.solve))
+        cpu = Circuit(Netlist.from_rows(rows), device="cpu")
+        _, cpu_ms = host_median_ms(cpu.solve)
+        split = kernel_split(circuit.solve)
+        emit({"phase": "circuit_band", "path": label, "n": stamps.n,
+              "nb": plan.nb, "kb": plan.kb, "method": sol.stats["method"],
+              "residual": sol.stats["residual"], "rel_err_vs_spsolve": err,
+              "launches": launched["band_solve_multi"],
+              "last_shape": bt.last_shape, "solve_ms_card": timing[1],
+              "solve_ms_card_reps": timing[0], "solve_ms_cpu": cpu_ms,
+              "device_ms": split["device_ms"],
+              "by_kernel_ms": split["by_kernel_ms"],
+              "kernels_per_solve": split["launches_per_call"]})
+        check(sol.stats["method"] == "band_thomas",
+              f"{label}: method {sol.stats['method']}")
+        check(launched["band_solve_multi"] == 1
+              and timed["band_solve_multi"] == solves,
+              f"{label}: {launched} launches for one solve, {timed} for "
+              f"{solves}")
+        check(bt.last_shape == (1, plan.nb, plan.kb, 1)
+              and bt.last_shape in BAND_SHAPES,
+              f"{label}: last shape {bt.last_shape}, a kernel check's: "
+              f"{bt.last_shape in BAND_SHAPES}")
+        check(err <= BAND_SOLVE_RTOL, f"{label}: {err:.3e} from spsolve")
+        launches += launched["band_solve_multi"]
+
+    for main, argv in ((solver_cli.main, [str(examples / "netlist.csv")]),
+                       (solver_cli.main, [str(examples / "1.6.1.csv"),
+                                          "--sensitivity", "e(2)"]),
+                       (solver_cli.main,
+                        [str(examples / "opmodel_amplifier.csv")]),
+                       (equiv_cli.main, [str(examples / "resistive_1.csv")])):
+        card = cli_output(main, argv)
+        cpu = cli_output(main, [*argv, "--device", "cpu"])
+        worst = same_cli_lines(card, cpu)
+        emit({"phase": "cli", "argv": argv, "lines": len(card.splitlines()),
+              "worst_rel_diff": worst})
+        if argv[0].endswith("netlist.csv"):
+            check(card == "Ground node: 1\ne(2) \t= -1.0\ne(3) \t= -2.0\n",
+                  f"netlist.csv printed {card!r}")
+        if argv[0].endswith("resistive_1.csv"):
+            check(card == "R = 2.0\n", f"resistive_1.csv printed {card!r}")
+    return {"band_solve_multi": launches}
+
+
+def mc_tolerances(circuit) -> dict:
+    """Every resistor at ``SWEEP_SIGMA``, as bench.py's Monte Carlo."""
+    return {name: SWEEP_SIGMA
+            for name, comp in circuit.netlist.components.items()
+            if comp.type == "R"}
+
+
+def phase_monte_carlo() -> dict:
+    """BASELINE config 4 and the mesh and branch sweeps through
+    ``monte_carlo``: the tier's kernel launched in each timed call, the
+    f64 audit under the contract, the same seed bit for bit, the exact
+    audit against the fused one, and (config 4) the card's statistics
+    against ``_mc_run`` on the CPU with the same draws.  Returns the
+    launches of the timed calls."""
+    from nodal_tpu_torch import Circuit, Netlist
+    from nodal_tpu_torch.batch import _mc_run, monte_carlo
+    from nodal_tpu_torch.utils.gridgen import ladder_rows
+
+    total = {}
+    for label, rows, n, method, kernel in (
+            ("ladder256", ladder_rows(MC_RUNGS), MC_SAMPLES, "tridiag",
+             "pcr_solve"),
+            ("mesh", mesh_rows(MESH_NODES), MC_SUB_SAMPLES, "sband",
+             "sband_solve_multi"),
+            ("branch", mesh_rows(MESH_NODES, branch=True), MC_SUB_SAMPLES,
+             "schur", "sband_solve_multi")):
+        circuit = Circuit(Netlist.from_rows(rows))
+        tols = mc_tolerances(circuit)
+        monte_carlo(circuit, tols, n, seed=0)  # warm-up
+        solver = circuit.batched_solver()
+        check(solver.method == method,
+              f"monte_carlo {label}: method {solver.method}")
+        runs = []
+        for seed in MC_SEEDS:
+            t0 = time.perf_counter()
+            out, launched = counted(
+                lambda s=seed: monte_carlo(circuit, tols, n, seed=s))
+            runs.append({"seed": seed, "s": time.perf_counter() - t0,
+                         "max_residual": out["max_residual"],
+                         "launches": launched})
+            check(launched[kernel] > 0, f"monte_carlo {label} seed {seed}: "
+                  f"{kernel} never launched ({launched})")
+            if kernel == "sband_solve_multi":
+                sband_shape_checked(f"monte_carlo {label}")
+            check(out["max_residual"] <= CONTRACT_TOL,
+                  f"monte_carlo {label} seed {seed}: max residual "
+                  f"{out['max_residual']:.3e}")
+            check(bool(torch.isfinite(out["mean"]).all()
+                       and torch.isfinite(out["std"]).all()),
+                  f"monte_carlo {label}: non-finite statistics")
+            add_launches(total, launched)
+        again = monte_carlo(circuit, tols, n, seed=MC_SEEDS[0])
+        first = monte_carlo(circuit, tols, n, seed=MC_SEEDS[0], audit="exact")
+        check(torch.equal(again["mean"], first["mean"])
+              and torch.equal(again["std"], first["std"]),
+              f"monte_carlo {label}: the same seed gave other statistics")
+        audit_diff = abs(first["max_residual"] - again["max_residual"])
+        check(audit_diff <= 1e-12, f"monte_carlo {label}: exact audit "
+              f"{first['max_residual']:.3e}, fused {again['max_residual']:.3e}")
+        info = {}
+        if label == "ladder256":
+            # The same draws as monte_carlo's, from the same generator.
+            stamps, dev = circuit.stamps, torch.device("cuda")
+            gen = torch.Generator(device=dev).manual_seed(MC_SEEDS[0])
+            noise = torch.randn(n, len(tols), generator=gen,
+                                dtype=torch.float32, device=dev)
+            cpu = Circuit(Netlist.from_rows(rows), device="cpu")
+            slots = torch.tensor([stamps.param_slot[m] for m in tols])
+            sigmas = torch.tensor(list(tols.values()), dtype=torch.float32)
+            base = torch.as_tensor(stamps.params, dtype=torch.float32)
+            mean, std, _, _, audit = _mc_run(
+                cpu.batched_solver(), cpu.stamps, base, slots, sigmas,
+                noise.cpu(), False, True)
+            scale = float(mean.abs().max())
+            info = {
+                "mean_vs_cpu": float((again["mean"].cpu() - mean).abs().max())
+                / scale,
+                "std_vs_cpu": float((again["std"].cpu() - std).abs().max())
+                / scale,
+                "cpu_max_residual": float(audit[0]),
+                "e_n0_mean": float(again["mean"][circuit.netlist.nodenum[
+                    "n0"]]),
+                "e_n0_std": float(again["std"][circuit.netlist.nodenum[
+                    "n0"]])}
+            check(info["mean_vs_cpu"] <= MC_CPU_TOL
+                  and info["std_vs_cpu"] <= MC_CPU_TOL,
+                  f"monte_carlo {label}: card against CPU {info}")
+        best = min(r["s"] for r in runs)
+        emit({"phase": "monte_carlo", "path": label, "method": method,
+              "n": circuit.stamps.n, "samples": n, "tolerances": len(tols),
+              "runs": runs, "best_s": best, "solves_per_s": n / best,
+              "exact_audit": first["max_residual"],
+              "fused_audit": again["max_residual"], **info})
+    return total
+
+
+def phase_sensitivities() -> dict:
+    """``sensitivities`` on the card for the ladder, mesh, branch and
+    1.6.1 circuits: against the port on the CPU, against central
+    differences of the card's own raw f64 solve on the three largest
+    entries, the tier's kernel launched by the adjoint (none on
+    ``dense``), and the ms of a call.  Returns the launches of one call
+    on each circuit."""
+    from nodal_tpu_torch import Circuit, Netlist
+    from nodal_tpu_torch.batch import sensitivities
+    from nodal_tpu_torch.utils.gridgen import ladder_rows
+
+    total = {}
+    cases = [("ladder", ladder_rows(LADDER_RUNGS), "tridiag",
+              {"potential": "n0"}, "pcr_solve"),
+             ("mesh", mesh_rows(MESH_NODES), "sband", {"potential": "1"},
+              "sband_solve_multi"),
+             ("branch", mesh_rows(MESH_NODES, branch=True), "schur",
+              {"current": "e1"}, "sband_solve_multi"),
+             ("161", [r.split(",") for r in (
+                 "r1,R,2,1,4", "r2,R,2,1,g", "r3,R,0.5,1,2",
+                 "e1,E,8,4,g", "a1,A,4,1,2", "d1,CCCS,2,2,g,1,g,r2")],
+              "dense", {"current": "e1"}, None)]
+    for label, rows, method, target, kernel in cases:
+        circuit = Circuit(Netlist.from_rows(rows))
+        solver = circuit.batched_solver(dtype=torch.float64)
+        check(solver.method == method, f"sensitivities {label}: method "
+              f"{solver.method}")
+        sens, launched = counted(lambda: sensitivities(circuit, **target))
+        if kernel == "sband_solve_multi":
+            sband_shape_checked(f"sensitivities {label}")
+        p = torch.tensor(circuit.stamps.params, device="cuda")[None]
+        _, forward = counted(lambda: solver(p))
+        backward = {k: launched[k] - forward[k] for k in launched}
+        cpu = sensitivities(Circuit(Netlist.from_rows(rows), device="cpu"),
+                            **target)
+        names = list(sens)
+        g = np.array([sens[k] for k in names])
+        scale = float(np.abs(g).max())
+        err_cpu = float(np.abs(g - np.array([cpu[k] for k in names])).max()
+                        ) / scale
+        netlist = circuit.netlist
+        idx = (netlist.nodenum[target["potential"]] if "potential" in target
+               else netlist.nums["kcl"] + netlist.anomnum[target["current"]])
+        raw = circuit.batched_solver(dtype=torch.float64, refine=False)
+        fd = {}
+        for k in np.argsort(-np.abs(g))[:3]:
+            slot = circuit.stamps.param_slot[names[k]]
+            h = SENS_FD_STEP * max(abs(circuit.stamps.params[slot]), 1.0)
+            q = np.tile(circuit.stamps.params, (2, 1))
+            q[0, slot] += h
+            q[1, slot] -= h
+            x = raw(q)[:, idx].cpu().numpy()
+            fd[names[k]] = (float(g[k]), float((x[0] - x[1]) / (2 * h)))
+        err_fd = max(abs(a - b) for a, b in fd.values()) / scale
+        times, ms = host_median_ms(lambda: sensitivities(circuit, **target))
+        emit({"phase": "sensitivities", "path": label, "method": method,
+              "n": circuit.stamps.n, "params": len(names), "target": target,
+              "rel_err_vs_cpu": err_cpu, "rel_err_vs_central_diff": err_fd,
+              "central_diff": fd, "launches": launched,
+              "backward_launches": backward, "ms": ms, "ms_reps": times})
+        check(err_cpu <= SENS_CPU_TOL, f"sensitivities {label}: "
+              f"{err_cpu:.3e} from the CPU")
+        check(err_fd <= SENS_FD_TOL, f"sensitivities {label}: {err_fd:.3e} "
+              "from central differences")
+        check(backward[kernel] > 0 if kernel else not any(launched.values()),
+              f"sensitivities {label}: launches {launched}, backward "
+              f"{backward}")
+        add_launches(total, launched)
+    return total
+
+
 def kernel_entry(name, source, replaces, launches, t) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -2324,6 +2776,20 @@ def main() -> None:
     bwd_launches = phase_adjoint()
     emit({"phase": "adjoint_launches", "backward": bwd_launches})
     clock("adjoint")
+    bt_launches += phase_circuit()["band_solve_multi"]
+    clock("circuit")
+    mc_launches = phase_monte_carlo()
+    clock("monte carlo")
+    sens_launches = phase_sensitivities()
+    clock("sensitivities")
+    emit({"phase": "analysis_launches", "monte_carlo": mc_launches,
+          "sensitivities": sens_launches})
+    for counts in (mc_launches, sens_launches):
+        launches += counts.get("pcr_solve", 0)
+        sb_launches += counts.get("sband_solve_multi", 0)
+        bt_launches += counts.get("band_solve_multi", 0)
+        lu_launches += (counts.get("lu_factor", 0)
+                        + counts.get("lu_solve_factored", 0))
 
     emit(card)  # again beside the summary, which a tail of the output keeps
     emit({"kernels": [

@@ -21,8 +21,11 @@ blocked-LU kernel of :mod:`nodal_tpu_torch.ops.lu`), ``schur``
 with the border columns as extra right-hand sides) and ``dense`` (what is
 left: the library's pivoted LU), the exact-f64 defect-correction
 contract layer that ``refine="auto"`` wraps around each, and the adjoint
-(:func:`make_adjoint_solver`) that makes every tier differentiable.
-Monte Carlo and sensitivities are absent (ROADMAP.md Queue 1).
+(:func:`make_adjoint_solver`) that makes every tier differentiable.  On
+top of them: :func:`sweep`, :func:`monte_carlo` (component-tolerance
+sweeps with an f64 residual audit) and :func:`sensitivities` (one solve
+plus one adjoint solve for the derivative of an output by every
+component).
 
 Device policy: a solver runs on the device it is given (default
 ``"cuda"``, which raises when CUDA is absent).  Every tensor of a solve,
@@ -32,12 +35,13 @@ the f64 audit included, stays on that device.
 from __future__ import annotations
 
 import dataclasses
+import logging
 import math
 
 import numpy as np
 import torch
 
-from nodal_tpu_torch.circuit import Circuit
+from nodal_tpu_torch.circuit import SPARSE_NOT_PORTED, Circuit
 from nodal_tpu_torch.models.stamps import (StampTensors, device_table,
                                            stamp_values, stamp_values_np)
 from nodal_tpu_torch.ops import dense_solve
@@ -55,6 +59,7 @@ from nodal_tpu_torch.ops.sband import (sband_fits, sband_solve,
 from nodal_tpu_torch.ops.scalar_band import (MAX_W, node_sband_plan,
                                              sband_plan)
 from nodal_tpu_torch.ops.tridiag import tridiag_matvec
+from nodal_tpu_torch.utils.device import resolve_device
 
 #: Rows with more COO entries than this keep the scatter-add audit (the
 #: gather-fold pass reads ``width`` slots per output row).
@@ -93,6 +98,8 @@ _DENSE_BATCH_MAX_N = 16384
 _SCHUR_DENSE_PROBE_MAX_NK = 8192
 
 _METHODS = ("auto", "tridiag", "sband", "band", "block", "schur", "dense")
+
+logger = logging.getLogger(__name__)
 
 
 def _resid_gather_tables(stamps: StampTensors):
@@ -700,20 +707,6 @@ def _make_schur_solver(assemble, multi_solve, nplan, nk: int, kbe: int):
     return core, (lambda pb, rhs: core(pb, rhs, transpose=True))
 
 
-def resolve_device(device, who: str = "BatchedSolver") -> torch.device:
-    """The device an entry point ``who`` runs on: CUDA, which must be
-    available, or the CPU when asked for."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                f"{who}(device='cuda'): CUDA is not available; pass "
-                "device='cpu' for the plain torch path")
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
-    return dev
-
-
 class BatchedSolver:
     """Batched assemble+solve for one netlist topology.
 
@@ -1039,11 +1032,188 @@ def sweep(
     dtype=torch.float32,
     refine: bool | str = False,
     method: str = "auto",
-    device="cuda",
+    device=None,
 ) -> BatchResult:
     """Solve the circuit once per value of one component (all others at
-    their netlist values): the classic DC sweep, one batched solve."""
+    their netlist values): the classic DC sweep, one batched solve, on
+    ``device`` (default: the circuit's own)."""
     solver = circuit.batched_solver(dtype=dtype, refine=refine,
                                     method=method, device=device)
     batch = solver.params_with({component: np.asarray(values)})
     return BatchResult(solver(batch), circuit.netlist)
+
+
+def monte_carlo(
+    circuit: Circuit | StampTensors,
+    tolerances: dict[str, float],
+    n: int,
+    *,
+    seed: int = 0,
+    dtype=torch.float32,
+    refine: bool | str = "auto",
+    return_solutions: bool = False,
+    audit: bool | str = True,
+    device=None,
+) -> dict:
+    """Monte Carlo component-tolerance sweep on the device.
+
+    Each named component's value is drawn i.i.d. normal around its netlist
+    value with relative standard deviation ``tolerances[name]``, from
+    ``torch.Generator(device).manual_seed(seed)``, in ``dtype``.  Sampling,
+    the batched solve and the summary statistics stay on the device; only
+    what is returned leaves it.  Returns a dict with ``mean`` and ``std``
+    (over the samples, dividing by n) and, if asked, ``solutions``.
+
+    With ``audit=True`` (the default) every sample's solution is checked
+    against the exact COO operator in f64, reported as ``max_residual``,
+    with a logged warning when a sample exceeds ``_AUDIT_WARN_TOL``
+    relative: normal draws with a large tolerance can produce negative
+    component values, outside the diagonal dominance the no-pivot tiers
+    assume.  ``audit="exact"`` runs the same f64 check through
+    :meth:`BatchedSolver.residuals` on the returned batch.
+
+    ``circuit`` may also be bare :class:`StampTensors`; ``device=None`` is
+    the circuit's own device (``"cuda"`` for bare stamps).  The solver is
+    memoized on a circuit.
+    """
+    stamps = _stamps_of(circuit)
+    if device is None:
+        device = getattr(circuit, "device", "cuda")
+    if hasattr(circuit, "batched_solver"):
+        solver = circuit.batched_solver(dtype=dtype, refine=refine,
+                                        device=device)
+    else:
+        solver = BatchedSolver(circuit, dtype=dtype, refine=refine,
+                               device=device)
+    dev = solver.device
+    names = list(tolerances)
+    slots = torch.as_tensor([stamps.param_slot[m] for m in names],
+                            dtype=torch.long, device=dev)
+    sigmas = torch.as_tensor([tolerances[m] for m in names], dtype=dtype,
+                             device=dev)
+    base = torch.as_tensor(stamps.params, dtype=dtype, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    noise = torch.randn(n, len(names), generator=gen, dtype=dtype,
+                        device=dev)
+
+    exact = audit == "exact"
+    mean, std, xs, batch, audit_out = _mc_run(
+        solver, stamps, base, slots, sigmas, noise,
+        want=return_solutions or exact, check=bool(audit) and not exact)
+    out = {"mean": mean, "std": std}
+    if return_solutions:
+        out["solutions"] = xs
+    if exact:
+        res = solver.residuals(batch, xs)
+        audit_out = (res.max(), (res > _AUDIT_WARN_TOL).sum())
+    if audit:
+        max_residual = float(audit_out[0])
+        out["max_residual"] = max_residual
+        if not np.isfinite(max_residual) or max_residual > _AUDIT_WARN_TOL:
+            logger.warning(
+                "monte_carlo: %d of %d samples exceed residual %.0e "
+                "(worst %.2e) — large tolerances can draw negative "
+                "component values outside the fast paths' "
+                "diagonal-dominance domain; consider refine=True or a "
+                "smaller tolerance",
+                int(audit_out[1]), n, _AUDIT_WARN_TOL, max_residual,
+            )
+    return out
+
+
+def _mc_run(solver: BatchedSolver, stamps: StampTensors,
+            base: torch.Tensor, slots: torch.Tensor, sigmas: torch.Tensor,
+            noise: torch.Tensor, want: bool, check: bool):
+    """The body of :func:`monte_carlo` for given draws ``noise`` [n, k]:
+    ``(mean, std, xs, batch, audit)``.
+
+    ``xs`` and the sampled ``batch`` come back only with ``want``;
+    ``audit`` is ``(max residual, samples over _AUDIT_WARN_TOL)``, two
+    0-dim tensors, only with ``check``.  The residuals are the f64 ones of
+    the exact COO operator whatever the sweep's dtype (the JAX package's
+    fused audit reads an f32 sweep at f32).  Runs without autograd: a
+    large batch keeps no graph alive.
+    """
+    with torch.no_grad():
+        values = base[slots] * (1.0 + sigmas * noise)
+        batch = base.expand(noise.shape[0], -1).clone()
+        batch[:, slots] = values
+        xs = solver._solve(batch)
+        mean = xs.mean(dim=0)
+        std = xs.std(dim=0, correction=0)
+        audit_out = None
+        if check:
+            res = _coo_residuals(stamps, batch.to(torch.float64),
+                                 xs.to(torch.float64))
+            audit_out = (res.max(), (res > _AUDIT_WARN_TOL).sum())
+    return (mean, std, xs if want else None, batch if want else None,
+            audit_out)
+
+
+def sensitivities(
+    circuit: Circuit | StampTensors,
+    *,
+    potential: str | None = None,
+    current: str | None = None,
+    dtype=torch.float64,
+) -> dict[str, float]:
+    """d(output)/d(component value) for every component, from one solve
+    plus one adjoint solve (``backward()`` through :class:`BatchedSolver`'s
+    adjoint), on the circuit's device.
+
+    Pass exactly one of ``potential=<node name>`` or
+    ``current=<anomalous component name>``.  Returns ``{component name:
+    d output / d value}`` over all components, in netlist units.  The cost
+    does not grow with the component count; finite differences would take
+    one extra solve per component.
+
+    A circuit built with ``sparse=True`` raises ``NotImplementedError``:
+    its adjoint (the bordered elimination) is not ported.
+    """
+    netlist = circuit.netlist
+    stamps = _stamps_of(circuit)
+    if (potential is None) == (current is None):
+        raise ValueError(
+            "pass exactly one of potential=<node> or current=<component>")
+    if potential is not None:
+        if potential == netlist.ground:
+            return {name: 0.0 for name in stamps.param_slot}
+        if potential not in netlist.nodenum:
+            raise KeyError(f"unknown node {potential!r}")
+        idx = netlist.nodenum[potential]
+    else:
+        if current not in netlist.anomnum:
+            raise KeyError(
+                f"{current!r} is not an anomalous component (no branch "
+                "current variable)")
+        idx = netlist.nums["kcl"] + netlist.anomnum[current]
+    if getattr(circuit, "sparse", False):
+        raise NotImplementedError(
+            f"sensitivities of a sparse=True circuit are {SPARSE_NOT_PORTED}")
+
+    g = _adjoint_grad(circuit, {idx: 1.0}, dtype)
+    return {name: float(g[slot]) for name, slot in stamps.param_slot.items()}
+
+
+def _adjoint_grad(circuit: Circuit, weights: dict[int, float],
+                  dtype=torch.float64) -> np.ndarray:
+    """d(Σ_i w_i·x_i)/d(component values) of ``circuit`` at its own
+    values: one solve plus one adjoint solve (``backward()`` through
+    :class:`BatchedSolver`'s adjoint) on the circuit's device.  ``weights``
+    maps unknowns to their weights; none gives zeros.  Returns host f64
+    [n_components]."""
+    stamps = circuit.stamps
+    if not weights:
+        return np.zeros(len(stamps.params))
+    solver = circuit.batched_solver(dtype=dtype)
+    p = torch.tensor(stamps.params, dtype=solver.dtype,
+                     device=solver.device)[None].requires_grad_()
+    x = solver(p)[0]
+    sum(w * x[i] for i, w in weights.items()).backward()
+    return p.grad[0].to(torch.float64).cpu().numpy()
+
+
+#: Relative-residual level above which monte_carlo's audit warns.  An f32
+#: fast-path solve of a well-conditioned system lands around 1e-6; crossing
+#: 1e-3 means the solver left its assumptions (e.g. negative samples).
+_AUDIT_WARN_TOL = 1e-3

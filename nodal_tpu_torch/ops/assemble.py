@@ -51,6 +51,18 @@ def assemble_dense(stamps: StampTensors, params: torch.Tensor, dtype=None,
     return G.view(B, m, m), b
 
 
+def assemble_rhs(stamps: StampTensors, params: torch.Tensor, dtype=None
+                 ) -> torch.Tensor:
+    """Only the RHS vectors ``b [B, n]`` for ``[B, n_components]`` params
+    (for probe-source sweeps where G is fixed); the same fold as
+    :func:`assemble_dense`'s ``b``."""
+    params = _as_params(params, dtype)
+    _, rhs_vals = stamp_values(stamps, params)
+    return gather_fold(stamps, f"dense_b{stamps.n}", rhs_vals,
+                       stamps.rhs_rows.astype(np.int64),
+                       np.arange(len(stamps.rhs_rows)), stamps.n)
+
+
 def bandwidth(stamps: StampTensors) -> int:
     """Matrix bandwidth of the stamp template in natural node order.
 

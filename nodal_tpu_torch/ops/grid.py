@@ -30,10 +30,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from nodal_tpu_torch.batch import resolve_device
 from nodal_tpu_torch.ops import stencil
 from nodal_tpu_torch.ops.cg import SolveInfo, cg
 from nodal_tpu_torch.ops.fused_cg import fused_grid_cg
+from nodal_tpu_torch.utils.device import resolve_device
 
 # Weighted-Jacobi smoothing factor: 4/5 is optimal-ish for the 2D 5-point
 # stencil's high-frequency band.

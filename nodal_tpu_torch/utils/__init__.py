@@ -1,1 +1,2 @@
-"""Utilities: netlist generators and the CUDA kernel build."""
+"""Utilities: netlist generators, the device check and the CUDA kernel
+build."""

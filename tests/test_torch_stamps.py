@@ -107,6 +107,8 @@ def test_port_imports_neither_jax_nor_reference():
             "nodal_tpu_torch.ops.pcr, nodal_tpu_torch.utils.kernels, "
             "nodal_tpu_torch.ops.grid, nodal_tpu_torch.ops.cg, "
             "nodal_tpu_torch.ops.stencil, nodal_tpu_torch.ops.fused_cg, "
+            "nodal_tpu_torch.circuit, nodal_tpu_torch.equiv, "
+            "nodal_tpu_torch.solver_cli, nodal_tpu_torch.equiv_cli, "
             "sys; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'nodal_tpu' not in sys.modules, 'nodal_tpu imported'")
