@@ -68,6 +68,20 @@ user-facing analysis:
   the CPU and central differences, the tier's kernel launched by the
   adjoint.
 
+Then the sparse slice: ``equivalent_resistance_many`` with 64 probe pairs
+on the 100×100 mesh and the 20×10×10 lattice (the block-Thomas kernel at
+(1, nb, 128, 64), a shape the kernel check holds) and on the 1000-node
+random network (the dense route), each against the CPU's skyline LDLᵀ;
+the 1000×1000 grid netlist (1M nodes) through the native parser and
+``equivalent_resistance_stamps`` (AMG-CG on the card) against the
+matrix-free grid solve; a 40,000-node random network through
+``Circuit(sparse=True)`` (Jacobi-CG) and AMG-CG against a dense f64 LU on
+the card, each repeated to see whether two solves agree bit for bit; and
+``equiv_cli -s --native on`` on the grid's CSV and ``solver_cli -s`` on the
+card against ``--device cpu``.  The skyline and the native parser are
+built with ``g++`` from ``nodal_tpu_torch/cpp``; a phase fails if either
+does not build.
+
 Each kernel is also timed against its plain version, against one PyTorch
 call that computes the same function (``torch.linalg.solve`` on the dense
 systems) and against its bound on the card; the blocked LU's and the block
@@ -155,15 +169,17 @@ BAND_RTOL = {torch.float32: 1e-4, torch.float64: 1e-10}
 # (B, nb, kb, r): every kb, one to 300 block rows (300 is past the TPU
 # streaming kernel's cap of n·kb <= 32768·128), r in {1, 3, 128, 130}
 # (130 takes two launches), the main paths' shapes, and batches larger
-# than the grid (the lattice shape walks the batch in four waves); the
-# last two are phase_circuit's single solves of the 100×100 mesh and the
-# 20×10×10 lattice.
+# than the grid (the lattice shape walks the batch in four waves); then
+# phase_circuit's single solves of the 100×100 mesh and the 20×10×10
+# lattice, and phase_equiv_many's 64 probe pairs of the same two (k = 64
+# is above APPLY_R = 4: the five-launch path).
 BAND_SHAPES = [
     (1, 1, 128, 1), (7, 2, 128, 3), (GENERAL_BATCH, 16, 128, 1),
     (MIDSIZE_BATCH, 79, 128, 1), (GENERAL_BATCH, 32, 128, 3),
     (7, 16, 128, 128), (2, 300, 128, 1), (MIDSIZE_BATCH, 10, 256, 1),
     (7, 4, 256, 3), (1, 2, 256, 128), (7, 3, 384, 1), (1, 8, 384, 128),
     (3, 4, 128, 130), (1, 79, 128, 1), (1, 16, 128, 1),
+    (1, 79, 128, 64), (1, 16, 128, 64),
 ]
 BAND_TIME_SHAPES = [(GENERAL_BATCH, 16, 128, 1), (MIDSIZE_BATCH, 79, 128, 1),
                     (MIDSIZE_BATCH, 10, 256, 1)]
@@ -293,6 +309,28 @@ MC_CPU_TOL = 1e-6
 SENS_CPU_TOL = 1e-9
 SENS_FD_STEP = 1e-5
 SENS_FD_TOL = 1e-6
+# equivalent_resistance_many: 64 probe pairs of each netlist's own nodes
+# (default_rng(0)); every resistance on the card within EQUIV_RTOL of the
+# CPU's skyline LDLᵀ (both f64 direct solves: ~κ·ε) and of single
+# equivalent_resistance calls on the first EQUIV_SINGLE pairs.
+EQUIV_PAIRS = 64
+EQUIV_SINGLE = 4
+EQUIV_RTOL = 1e-9
+# The resistive sparse backend at its users' scale: the 1000×1000 grid
+# netlist (1M nodes, ~2M resistors) through the native parser and
+# equivalent_resistance_stamps (AMG-CG at its tol 1e-9), R within
+# SPARSE_GRID_RTOL of the matrix-free grid solve at tol 1e-10 (the check
+# of tests/test_amg.py at 50²); and a 40,000-node random network, Jacobi-
+# and AMG-CG at tol 1e-10 within RANDNET40K_RTOL of max|x| of a pivoted
+# dense f64 LU of the same system on the card.
+SPARSE_GRID = 1000
+SPARSE_GRID_RTOL = 1e-6
+RANDNET40K_NODES, RANDNET40K_EDGES = 40000, 160000
+RANDNET40K_RTOL = 1e-8
+# A CLI line that ends in a CG solve on the card and on the CPU: both stop
+# at ||r|| <= 1e-9·||b||, with sums rounded in other orders, so their R
+# may differ by up to the solve's tolerance.
+CLI_CG_RTOL = 1e-9
 
 # Data-sheet peaks of the H100 SXM at full precision and its memory rate:
 # f32 on the CUDA cores (the tensor cores' f32 path is TF32, which is not
@@ -2332,9 +2370,9 @@ def cli_output(main, argv) -> str:
     return buf.getvalue()
 
 
-def same_cli_lines(card: str, cpu: str) -> float:
+def same_cli_lines(card: str, cpu: str, rtol: float = CLI_RTOL) -> float:
     """Fails unless the two outputs have the same lines but for the
-    values, which must agree within ``CLI_RTOL`` of the largest printed
+    values, which must agree within ``rtol`` of the largest printed
     value; returns the worst difference over that scale."""
     cl, pl = card.splitlines(), cpu.splitlines()
     check(len(cl) == len(pl) and len(cl) > 0,
@@ -2347,7 +2385,7 @@ def same_cli_lines(card: str, cpu: str) -> float:
         check(c[0] == p[0], f"CLI lines differ: {c[0]!r} / {p[0]!r}")
         if len(p) == 2:
             worst = max(worst, abs(float(c[1]) - float(p[1])) / scale)
-    check(worst <= CLI_RTOL, f"CLI values differ by {worst:.3e} of the "
+    check(worst <= rtol, f"CLI values differ by {worst:.3e} of the "
           f"largest: {card!r} / {cpu!r}")
     return worst
 
@@ -2655,6 +2693,292 @@ def phase_sensitivities() -> dict:
     return total
 
 
+def resistors_only(rows):
+    """The resistor rows of a netlist: equivalent resistance takes
+    resistors only (``check_resistive``)."""
+    return [r for r in rows if r[1] == "R"]
+
+
+def equiv_pairs(netlist, k: int = EQUIV_PAIRS):
+    """k probe pairs of distinct nodes of the netlist (ground among them),
+    drawn with ``numpy.random.default_rng(0)``."""
+    nodes = sorted(netlist.nodenum) + [netlist.ground]
+    rng = np.random.default_rng(0)
+    return [tuple(nodes[i] for i in rng.choice(len(nodes), 2,
+                                               replace=False))
+            for _ in range(k)]
+
+
+def rel_each(x: np.ndarray, ref: np.ndarray) -> float:
+    """The largest elementwise relative difference."""
+    return float(np.max(np.abs(x - ref) / np.abs(ref)))
+
+
+def phase_equiv_many() -> dict:
+    """``equivalent_resistance_many`` with 64 probe pairs on the card: the
+    100×100 mesh and the 20×10×10 lattice through the band route (one
+    ``band_solve_multi`` host loop at (1, nb, 128, 64), a shape the kernel
+    check holds), the 1000-node random network through the dense route (no
+    kernel of the repo), each against the CPU's skyline LDLᵀ and single
+    ``equivalent_resistance`` calls, with host ms a call on the card and
+    on the CPU.  Returns the launches of one call on each."""
+    from nodal_tpu_torch import Netlist
+    from nodal_tpu_torch.equiv import (equivalent_resistance,
+                                       equivalent_resistance_many)
+    from nodal_tpu_torch.models.stamps import compile_stamps
+    from nodal_tpu_torch.ops import block_thomas, skyline
+    from nodal_tpu_torch.ops.band import band_plan
+
+    check(skyline.available(), "the skyline LDLᵀ library did not build")
+    bt = block_thomas.band_solve_multi
+    launches = 0
+    for label, rows, route in (
+            ("widemesh", grid_circuit_rows(100, 100), "band"),
+            ("lattice", lattice_rows(20, 10, 10), "band"),
+            ("randnet", randnet_rows(), "dense")):
+        netlist = Netlist.from_rows(resistors_only(rows))
+        pairs = equiv_pairs(netlist)
+        plan = band_plan(compile_stamps(netlist))
+        bt.last_shape = None
+        card, launched = counted(
+            lambda: equivalent_resistance_many(netlist, pairs))
+        shape = bt.last_shape
+        cpu = equivalent_resistance_many(netlist, pairs, device="cpu")
+        single = np.array([equivalent_resistance(netlist, a, b)
+                           for a, b in pairs[:EQUIV_SINGLE]])
+        err_cpu = rel_each(card, cpu)
+        err_single = rel_each(card[:EQUIV_SINGLE], single)
+        card_reps, card_ms = host_median_ms(
+            lambda: equivalent_resistance_many(netlist, pairs))
+        cpu_reps, cpu_ms = host_median_ms(
+            lambda: equivalent_resistance_many(netlist, pairs,
+                                               device="cpu"))
+        split = kernel_split(
+            lambda: equivalent_resistance_many(netlist, pairs))
+        emit({"phase": "equiv_many", "path": label, "route": route,
+              "n": len(netlist.nodenum), "pairs": len(pairs),
+              "band": None if plan is None else [plan.nb, plan.kb],
+              "last_shape": shape, "launches": launched,
+              "rel_err_vs_cpu_skyline": err_cpu,
+              "rel_err_vs_single": err_single, "ms_card": card_ms,
+              "ms_card_reps": card_reps, "ms_cpu": cpu_ms,
+              "ms_cpu_reps": cpu_reps, "device_ms": split["device_ms"],
+              "by_kernel_ms": split["by_kernel_ms"],
+              "kernels_per_call": split["launches_per_call"],
+              "R_first": float(card[0])})
+        check(np.isfinite(card).all() and card.shape == (len(pairs),),
+              f"equiv_many {label}: {card}")
+        check(err_cpu <= EQUIV_RTOL and err_single <= EQUIV_RTOL,
+              f"equiv_many {label}: {err_cpu:.3e} from the CPU, "
+              f"{err_single:.3e} from single solves")
+        if route == "band":
+            want = (1, plan.nb, plan.kb, len(pairs))
+            check(launched["band_solve_multi"] == 1 and shape == want
+                  and shape in BAND_SHAPES,
+                  f"equiv_many {label}: {launched}, last shape {shape}, "
+                  f"want {want} of BAND_SHAPES")
+        else:
+            check(plan is None and not any(launched.values()),
+                  f"equiv_many {label}: plan {plan}, launches {launched}")
+        launches += launched["band_solve_multi"]
+    return {"band_solve_multi": launches}
+
+
+@contextlib.contextmanager
+def sparse_log():
+    """Records what the sparse solves inside the block spend: the AMG
+    set-up's host seconds (``build_hierarchy``) and each Krylov loop's
+    ms on the host clock between two synchronizes, with its iterations."""
+    from nodal_tpu_torch.ops import sparse
+
+    log = {"setup_s": [], "krylov": []}
+    real = sparse.build_hierarchy, sparse.cg, sparse.bicgstab
+
+    def hierarchy(*args, **kw):
+        t0 = time.perf_counter()
+        out = real[0](*args, **kw)
+        log["setup_s"].append(time.perf_counter() - t0)
+        return out
+
+    def timed(solver):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x, info = solver(*args, **kw)
+            torch.cuda.synchronize()
+            log["krylov"].append({
+                "ms": (time.perf_counter() - t0) * 1e3,
+                "iterations": int(info.iterations[0])})
+            return x, info
+        return run
+
+    sparse.build_hierarchy = hierarchy
+    sparse.cg, sparse.bicgstab = timed(real[1]), timed(real[2])
+    try:
+        yield log
+    finally:
+        sparse.build_hierarchy, sparse.cg, sparse.bicgstab = real
+
+
+def trace_summary(fn) -> dict:
+    """One ``fn()`` call under ``torch.profiler``: its kernels, their
+    device ms, the host's synchronizes, and the five kernels that take
+    the most time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    by_name = {}
+    kernels = syncs = 0
+    for e in events:
+        if e.get("cat") == "kernel":
+            kernels += 1
+            name = kernel_name(e.get("name", ""))
+            by_name[name] = by_name.get(name, 0.0) + e["dur"] / 1e3
+        elif e.get("cat") == "cuda_runtime" and "Synchronize" in e.get(
+                "name", ""):
+            syncs += 1
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:5])
+    return {"kernels": kernels, "host_syncs": syncs,
+            "device_ms": sum(by_name.values()), "top_kernels_ms": top}
+
+
+def phase_sparse() -> None:
+    """The resistive sparse backend at its users' scale, on the card:
+
+    * ``grid1000_sparse``: the 1000×1000 grid netlist (1M nodes) parsed by
+      the native parser, then ``equivalent_resistance_stamps`` (AMG-CG),
+      R against the matrix-free grid solve;
+    * ``randnet40k``: a 40,000-node random network, ``Circuit(sparse=True)
+      .solve()`` (Jacobi-CG) and ``solve_sparse_system(preconditioner=
+      "amg")``, each against a pivoted dense f64 LU on the card, and each
+      repeated to see whether two solves agree bit for bit;
+    * both CLIs' ``-s`` (``equiv_cli --native on`` on the grid's CSV) on
+      the card against ``--device cpu``.
+
+    Fails when the skyline or the native parser does not build: nothing
+    here may take the Python path quietly."""
+    from nodal_tpu_torch import Circuit, Netlist, equiv_cli, solver_cli
+    from nodal_tpu_torch.equiv import equivalent_resistance_stamps
+    from nodal_tpu_torch.models.stamps import compile_stamps
+    from nodal_tpu_torch.netlist import is_connected
+    from nodal_tpu_torch.ops import skyline
+    from nodal_tpu_torch.ops.assemble import assemble_dense
+    from nodal_tpu_torch.ops.grid import grid_equivalent_resistance
+    from nodal_tpu_torch.ops.sparse import solve_sparse_system
+    from nodal_tpu_torch.utils import native
+    from nodal_tpu_torch.utils.gridgen import grid_csv
+
+    check(skyline.available(), "the skyline LDLᵀ library did not build")
+    try:
+        native._load()
+    except native.NativeUnavailable as e:
+        fail(f"the native parser did not build: {e}")
+
+    n = SPARSE_GRID
+    a, b = knight_probes(n)
+    t0 = time.perf_counter()
+    text = grid_csv(n, n, a, b)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stamps, symbols = native.parse_stamps(text)
+    parse_s = time.perf_counter() - t0
+    ia, ib = symbols.node_index("1"), symbols.node_index("g")
+    torch.cuda.reset_peak_memory_stats()
+    with sparse_log() as log:
+        t0 = time.perf_counter()
+        R = equivalent_resistance_stamps(stamps, ia, ib)
+        call_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    R_grid, ginfo = grid_equivalent_resistance(n, n, a, b,
+                                               dtype=torch.float64, tol=1e-10)
+    err = abs(R - float(R_grid)) / abs(float(R_grid))
+    trace = trace_summary(lambda: equivalent_resistance_stamps(stamps, ia,
+                                                               ib))
+    emit({"phase": "sparse", "path": "grid1000_sparse", "n": stamps.n,
+          "nnz_raw": stamps.nnz, "R": R, "R_grid": float(R_grid),
+          "grid_iterations": int(ginfo.iterations), "rel_err_vs_grid": err,
+          "csv_gen_s": gen_s, "parse_s": parse_s, "call_s": call_s,
+          "amg_setup_s": log["setup_s"], "cg": log["krylov"],
+          "peak_device_bytes": peak, "trace": trace})
+    check(len(log["setup_s"]) == 1 and len(log["krylov"]) == 1,
+          f"grid1000_sparse took another route: {log}")
+    check(err <= SPARSE_GRID_RTOL, f"grid1000_sparse: R {R} is {err:.3e} "
+          f"from the grid's {float(R_grid)}")
+
+    rows = randnet_rows(RANDNET40K_NODES, RANDNET40K_EDGES)
+    netlist = Netlist.from_rows(rows)
+    check(is_connected(netlist), "randnet40k is not connected")
+    stamps = compile_stamps(netlist)
+    params = torch.tensor(stamps.params, device="cuda")[None]
+    G, bvec = assemble_dense(stamps, params)
+    t0 = time.perf_counter()
+    ref = torch.linalg.solve(G, bvec)[0].cpu().numpy()
+    dense_ms = (time.perf_counter() - t0) * 1e3
+    del G
+    torch.cuda.empty_cache()
+    routes = {}
+    for route in ("jacobi", "amg"):
+        if route == "jacobi":
+            circuit = Circuit(netlist, sparse=True)
+
+            def solve():
+                sol = circuit.solve()
+                return sol.result, sol.stats["method"]
+        else:
+            def solve():
+                x, info = solve_sparse_system(stamps, stamps.params,
+                                              preconditioner="amg")
+                return x.cpu().numpy(), info.preconditioner
+        with sparse_log() as log:
+            t0 = time.perf_counter()
+            x, how = solve()
+            first_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            x2, _ = solve()
+            second_ms = (time.perf_counter() - t0) * 1e3
+        err = max_rel(x, ref)
+        routes[route] = {"how": how, "rel_err_vs_dense_lu": err,
+                         "bit_for_bit": bool(np.array_equal(x, x2)),
+                         "first_ms": first_ms, "second_ms": second_ms,
+                         "amg_setup_s": log["setup_s"], "cg": log["krylov"]}
+        check(err <= RANDNET40K_RTOL, f"randnet40k {route}: {err:.3e} from "
+              "the dense f64 LU")
+        check(len(log["krylov"]) == 2, f"randnet40k {route}: {log}")
+    emit({"phase": "sparse", "path": "randnet40k", "n": stamps.n,
+          "nnz_raw": stamps.nnz, "dense_lu_ms": dense_ms, **routes})
+    check(routes["jacobi"]["how"] == "krylov"
+          and routes["amg"]["how"] == "amg",
+          f"randnet40k routes: {routes}")
+
+    examples = ROOT / "examples"
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "grid1000.csv"
+        path.write_text(text)
+        for main, argv, rtol in (
+                (equiv_cli.main, [str(path), "-s", "--native", "on"],
+                 CLI_CG_RTOL),
+                (solver_cli.main, [str(examples / "resistive_1.csv"), "-s"],
+                 CLI_RTOL)):
+            t0 = time.perf_counter()
+            card = cli_output(main, argv)
+            card_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            cpu = cli_output(main, [*argv, "--device", "cpu"])
+            cpu_s = time.perf_counter() - t0
+            worst = same_cli_lines(card, cpu, rtol)
+            emit({"phase": "cli", "argv": [Path(argv[0]).name, *argv[1:]],
+                  "lines": len(card.splitlines()), "worst_rel_diff": worst,
+                  "card_s": card_s, "cpu_s": cpu_s,
+                  "first_line": card.splitlines()[0]})
+
+
 def kernel_entry(name, source, replaces, launches, t) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -2778,6 +3102,10 @@ def main() -> None:
     clock("adjoint")
     bt_launches += phase_circuit()["band_solve_multi"]
     clock("circuit")
+    bt_launches += phase_equiv_many()["band_solve_multi"]
+    clock("equiv many")
+    phase_sparse()
+    clock("sparse")
     mc_launches = phase_monte_carlo()
     clock("monte carlo")
     sens_launches = phase_sensitivities()

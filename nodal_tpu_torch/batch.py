@@ -41,7 +41,7 @@ import math
 import numpy as np
 import torch
 
-from nodal_tpu_torch.circuit import SPARSE_NOT_PORTED, Circuit
+from nodal_tpu_torch.circuit import Circuit
 from nodal_tpu_torch.models.stamps import (StampTensors, device_table,
                                            stamp_values, stamp_values_np)
 from nodal_tpu_torch.ops import dense_solve
@@ -58,6 +58,7 @@ from nodal_tpu_torch.ops.sband import (sband_fits, sband_solve,
                                        sband_solve_multi)
 from nodal_tpu_torch.ops.scalar_band import (MAX_W, node_sband_plan,
                                              sband_plan)
+from nodal_tpu_torch.ops.sparse import GENERAL_NOT_PORTED
 from nodal_tpu_torch.ops.tridiag import tridiag_matvec
 from nodal_tpu_torch.utils.device import resolve_device
 
@@ -1189,7 +1190,7 @@ def sensitivities(
         idx = netlist.nums["kcl"] + netlist.anomnum[current]
     if getattr(circuit, "sparse", False):
         raise NotImplementedError(
-            f"sensitivities of a sparse=True circuit are {SPARSE_NOT_PORTED}")
+            f"sensitivities of a sparse=True circuit are {GENERAL_NOT_PORTED}")
 
     g = _adjoint_grad(circuit, {idx: 1.0}, dtype)
     return {name: float(g[slot]) for name, slot in stamps.param_slot.items()}

@@ -10,7 +10,10 @@ entry pattern:
 assembles and solves on the circuit's device (default ``"cuda"``, which
 raises when CUDA is absent; ``device="cpu"`` runs the plain torch path).
 There is no automatic routing of small circuits to the host: a circuit
-runs where it is asked.
+runs where it is asked.  ``Circuit(..., sparse=True)`` solves a resistive
+circuit through the sparse backend (:func:`~nodal_tpu_torch.ops.sparse.
+solve_sparse_system`: Jacobi- or AMG-CG on the card, the skyline LDLᵀ
+first on the CPU).
 
 Error policy, as in the JAX package: after every solve the relative
 residual ``max|G x − b| / max(|b|, 1)`` is checked.  A non-finite or
@@ -37,6 +40,8 @@ from nodal_tpu_torch.ops import dense_solve
 from nodal_tpu_torch.ops.assemble import assemble_dense
 from nodal_tpu_torch.ops.band import band_matvec, band_plan
 from nodal_tpu_torch.ops.block_thomas import band_solve
+from nodal_tpu_torch.ops.sparse import (GENERAL_NOT_PORTED,
+                                        solve_sparse_system)
 from nodal_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -53,12 +58,8 @@ _RESIDUAL_WARN = 1e-4
 
 # Above this many unknowns the dense f64 rescue is not attempted (an n² f64
 # matrix would be enormous).  The JAX package's rescue there is the
-# bordered elimination of its sparse backend, which is not ported yet.
+# bordered elimination of its general sparse backend, not ported yet.
 _DENSE_RESCUE_MAX_N = 16384
-
-#: What the sparse paths say: they wait for the sparse backend.
-SPARSE_NOT_PORTED = ("not ported yet (the sparse backend, ROADMAP.md Queue 1 "
-                     "item 6)")
 
 
 class Circuit:
@@ -66,9 +67,10 @@ class Circuit:
 
     Args:
         netlist: a finalized :class:`Netlist`.
-        sparse: parity flag with the reference CLI ``-s``.  The sparse
-            backend is not ported: ``solve()`` raises
-            ``NotImplementedError`` on such a circuit.
+        sparse: parity flag with the reference CLI ``-s``: solve through
+            the sparse backend.  Only its resistive half is ported:
+            ``solve()`` raises ``NotImplementedError`` on a sparse circuit
+            with branch rows.
         dtype: ``torch.float64`` (default, the JAX package's dtype under
             x64) or ``torch.float32``.
         quirks: reference bit-compatibility switches.
@@ -108,14 +110,22 @@ class Circuit:
         """
         t0 = time.perf_counter()
         dev = resolve_device(self.device, "Circuit.solve")
-        if self.sparse:
-            raise NotImplementedError(
-                f"Circuit(sparse=True).solve() is {SPARSE_NOT_PORTED}")
         dtype_name = str(self.dtype).removeprefix("torch.")
         stats: dict = {"dtype": dtype_name, "backend": dev.type}
-        params = torch.as_tensor(self.stamps.params, dtype=self.dtype,
-                                 device=dev)[None]
-        x, residual, stats["method"] = self._solve_primary(params)
+        if self.sparse:
+            if self.stamps.n != self.stamps.n_kcl:
+                raise NotImplementedError(
+                    "Circuit(sparse=True).solve() of a circuit with branch "
+                    f"rows is {GENERAL_NOT_PORTED}")
+            x, info = solve_sparse_system(self.stamps, self.stamps.params,
+                                          dtype=self.dtype, device=dev)
+            residual = info.residual
+            stats["method"] = info.method
+            stats["iterations"] = info.iterations
+        else:
+            params = torch.as_tensor(self.stamps.params, dtype=self.dtype,
+                                     device=dev)[None]
+            x, residual, stats["method"] = self._solve_primary(params)
 
         x = x.to(torch.float64).cpu().numpy()
         if not self._acceptable(residual) or not np.all(np.isfinite(x)):
@@ -192,7 +202,7 @@ class Circuit:
             raise NotImplementedError(
                 f"the primary solve of {n} unknowns missed its residual "
                 f"gate, and the rescue above {_DENSE_RESCUE_MAX_N} "
-                f"unknowns is {SPARSE_NOT_PORTED}")
+                f"unknowns is {GENERAL_NOT_PORTED}")
         logger.debug("primary solve failed residual check; retrying in f64")
         params = torch.as_tensor(self.stamps.params, dtype=torch.float64,
                                  device=dev)[None]

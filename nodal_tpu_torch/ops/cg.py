@@ -1,15 +1,16 @@
-"""Batched preconditioned conjugate gradient.
+"""Batched preconditioned Krylov solvers: CG and BiCGStab.
 
-Counterpart of ``nodal_tpu/ops/cg.py:cg``, written for a leading batch
-dimension: ``b`` is ``[B, ...]`` and every dot product runs per sample over
-the trailing dimensions.  The loop keeps the semantics of ``jax.vmap`` of the
-JAX ``while_loop``: it runs while any sample is unconverged and under
-``maxiter``, and a sample that has stopped is frozen (its state is not
-stepped), so each sample's x, iterations and residual are those of its own
-single solve.
+Counterpart of ``nodal_tpu/ops/cg.py``'s ``cg`` and ``bicgstab``, written
+for a leading batch dimension: ``b`` is ``[B, ...]`` and every dot product
+runs per sample over the trailing dimensions.  The loops keep the semantics
+of ``jax.vmap`` of the JAX ``while_loop``: they run while any sample is
+unconverged and under ``maxiter``, and a sample that has stopped is frozen
+(its state is not stepped), so each sample's x, iterations and residual
+are those of its own single solve.  Each loop syncs the host once an
+iteration, for its continuation test.
 
 Not yet ported: the collectives of the JAX ``cg`` (``axis_names``,
-``cond_axis_names``) and ``bicgstab``.
+``cond_axis_names``).
 """
 
 from __future__ import annotations
@@ -96,3 +97,78 @@ def cg(matvec: Callable, b: torch.Tensor, x0: torch.Tensor | None = None, *,
         rr = _dot(r, r)
     res = torch.sqrt(rr / torch.clamp(b_norm2, min=tiny))
     return x, SolveInfo(residual=res, iterations=k, converged=res <= tol)
+
+
+def bicgstab(matvec: Callable, b: torch.Tensor,
+             x0: torch.Tensor | None = None, *,
+             preconditioner: Callable | None = None, tol: float = 1e-9,
+             maxiter: int | None = None):
+    """Preconditioned BiCGStab for general (nonsymmetric) operators,
+    batched over ``b`` [B, ...] as :func:`cg`.
+
+    A sample stops when ||r|| <= tol * ||b||, at ``maxiter``, or after the
+    step in which |ρ| fell below the dtype's ``tiny`` (breakdown); the
+    denominators are guarded as in the JAX package (:func:`_safe`).
+    """
+    M = preconditioner or _identity
+    if x0 is None:
+        x0 = torch.zeros_like(b)
+    if maxiter is None:
+        maxiter = 10 * b[0].numel()
+    eps = torch.finfo(b.dtype).tiny
+    B = b.shape[0]
+
+    b_norm2 = _dot(b, b)
+    atol2 = (tol * tol) * torch.clamp(b_norm2, min=eps)
+
+    x = x0
+    r = b - matvec(x0)
+    rhat = r
+    p = torch.zeros_like(b)
+    v = torch.zeros_like(b)
+    rho = alpha = omega = torch.ones(B, dtype=b.dtype, device=b.device)
+    k = torch.zeros(B, dtype=torch.int32, device=b.device)
+    broken = torch.zeros(B, dtype=torch.bool, device=b.device)
+    rr = _dot(r, r)
+    while True:
+        active = (rr > atol2) & (k < maxiter) & ~broken
+        # The loop's one host sync an iteration: the continuation test.
+        n_active = int(active.sum())
+        if n_active == 0:
+            break
+        rho_new = _dot(rhat, r)
+        beta = (rho_new / _safe(rho, eps)) * (alpha / _safe(omega, eps))
+        p_new = r + _per_sample(beta, r) * (p - _per_sample(omega, r) * v)
+        phat = M(p_new)
+        v_new = matvec(phat)
+        alpha_new = rho_new / _safe(_dot(rhat, v_new), eps)
+        s = r - _per_sample(alpha_new, r) * v_new
+        shat = M(s)
+        t = matvec(shat)
+        omega_new = _dot(t, s) / _safe(_dot(t, t), eps)
+        x_new = (x + _per_sample(alpha_new, x) * phat
+                 + _per_sample(omega_new, x) * shat)
+        r_new = s - _per_sample(omega_new, r) * t
+        new = (x_new, r_new, p_new, v_new, rho_new, alpha_new, omega_new)
+        if n_active == B:
+            x, r, p, v, rho, alpha, omega = new
+            k = k + 1
+        else:
+            # A stopped sample keeps its state, as under jax.vmap.
+            keep = _per_sample(active, x)
+            x, r, p, v = (torch.where(keep, a, o) for a, o in
+                          zip(new[:4], (x, r, p, v)))
+            rho, alpha, omega = (torch.where(active, a, o) for a, o in
+                                 zip(new[4:], (rho, alpha, omega)))
+            k = k + active.to(torch.int32)
+        broken = broken | (active & (rho_new.abs() < eps))
+        rr = _dot(r, r)
+    res = torch.sqrt(rr / torch.clamp(b_norm2, min=eps))
+    return x, SolveInfo(residual=res, iterations=k, converged=res <= tol)
+
+
+def _safe(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """``x`` with its magnitude raised to at least ``eps``, sign kept (a
+    zero counts as positive)."""
+    floor = torch.where(x < 0, x.new_full((), -eps), x.new_full((), eps))
+    return torch.where(x.abs() < eps, floor, x)

@@ -1,24 +1,35 @@
 """``nodal-solver`` command line: solve a CSV netlist and print the solution.
 
-    python -m nodal_tpu_torch.solver_cli FILE [--device cpu] [--stats]
+    python -m nodal_tpu_torch.solver_cli FILE [-s] [--native on]
+        [--device cpu] [--stats]
 
 Counterpart of ``nodal_tpu/solver_cli.py``.  Parity target: reference
 solver.py — the same positional netlist path, exit codes (missing file →
 1, unconnected circuit → 1) and printed format.  ``--device`` picks where
-the solve runs (default ``cuda``).  ``-s/--sparse`` is accepted for parity
-but ends in a usage error: the sparse backend is not ported yet.
+the solve runs (default ``cuda``).  ``-s/--sparse`` solves a resistive
+circuit through the sparse backend; on a circuit with branch rows it is a
+usage error (exit 2), since that half of the backend is not ported yet.
+``--native`` parses with the C++ parser and solves sparsely (``auto``:
+netlists over 256 KiB); a netlist with branch rows goes on to the Python
+path.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import re
 import sys
 import time
 
-from nodal_tpu_torch.circuit import SPARSE_NOT_PORTED
+import numpy as np
+
+from nodal_tpu_torch.ops.sparse import GENERAL_NOT_PORTED
 
 _DTYPES = ("f32", "f64")
+
+#: ``--native auto`` takes netlists of at least this many bytes.
+_NATIVE_SIZE_THRESHOLD = 256 * 1024
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -30,7 +41,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "-s", "--sparse", action="store_true",
-        help=f"the sparse/iterative backend: {SPARSE_NOT_PORTED}",
+        help="use the sparse/iterative backend (resistive circuits; with "
+        f"branch rows it is {GENERAL_NOT_PORTED})",
     )
     parser.add_argument(
         "--dtype", choices=_DTYPES, default="f64",
@@ -42,6 +54,13 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--stats", action="store_true", help="print timing statistics to stderr"
+    )
+    parser.add_argument(
+        "--native",
+        choices=("auto", "on", "off"),
+        default="auto",
+        help="use the C++ netlist parser + sparse solve for large resistive "
+        "netlists (auto: over 256 KiB)",
     )
     parser.add_argument(
         "--compat-vccs",
@@ -69,11 +88,63 @@ def torch_dtype(name: str):
     return {"f32": torch.float32, "f64": torch.float64}[name]
 
 
+def wants_native(args) -> bool:
+    """Whether ``--native`` asks for the C++ parser on this file (``auto``:
+    files of at least ``_NATIVE_SIZE_THRESHOLD`` bytes); never for a
+    missing file, which the Python path reports."""
+    if args.native == "off":
+        return False
+    try:
+        size = os.path.getsize(args.netlist_path)
+    except OSError:
+        return False
+    return args.native == "on" or size >= _NATIVE_SIZE_THRESHOLD
+
+
+def _try_native(args) -> bool:
+    """Native path: C++ parse -> stamp tensors -> sparse solve on
+    ``--device`` -> print.  Returns False, having printed nothing, for a
+    netlist with branch rows or a solve that did not converge: the Python
+    path takes those."""
+    from nodal_tpu_torch.models.stamps import Quirks
+    from nodal_tpu_torch.ops.sparse import solve_sparse_system
+    from nodal_tpu_torch.utils import native
+
+    quirks = Quirks(vccs_as_vcvs=True) if args.compat_vccs else None
+    t0 = time.perf_counter()
+    with open(args.netlist_path, "rb") as fh:
+        stamps, symbols = native.parse_stamps(fh.read(), quirks=quirks)
+    t1 = time.perf_counter()
+    if stamps.n != stamps.n_kcl:
+        return False
+    x, info = solve_sparse_system(stamps, stamps.params,
+                                  dtype=torch_dtype(args.dtype),
+                                  device=args.device)
+    x = x.double().cpu().numpy()
+    if not info.converged or not np.all(np.isfinite(x)):
+        return False
+    t2 = time.perf_counter()
+
+    lines = [f"Ground node: {symbols.ground}"]
+    for name, row in sorted(symbols.node_rows()):
+        lines.append(f"e({name}) \t= {x[row]}")
+    print("\n".join(lines))
+    if args.stats:
+        print(
+            f"parse: {t1 - t0:.4f}s  compile+solve: {t2 - t1:.4f}s  "
+            f"method: native+{info.method}  residual: {info.residual:.2e}  "
+            f"iterations: {info.iterations}",
+            file=sys.stderr,
+        )
+    return True
+
+
 def main(argv=None) -> None:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.sparse:
-        parser.error(f"-s/--sparse is {SPARSE_NOT_PORTED}")
+
+    if args.sensitivity is None and wants_native(args) and _try_native(args):
+        return
 
     from nodal_tpu_torch import Circuit, Netlist, Quirks, UnconnectedCircuitError
 
@@ -85,8 +156,12 @@ def main(argv=None) -> None:
     t1 = time.perf_counter()
 
     quirks = Quirks(vccs_as_vcvs=True) if args.compat_vccs else None
-    circuit = Circuit(netlist, dtype=torch_dtype(args.dtype), quirks=quirks,
+    circuit = Circuit(netlist, sparse=args.sparse,
+                      dtype=torch_dtype(args.dtype), quirks=quirks,
                       device=args.device)
+    if args.sparse and circuit.stamps.n != circuit.stamps.n_kcl:
+        parser.error("-s/--sparse on a circuit with branch rows is "
+                     f"{GENERAL_NOT_PORTED}")
     try:
         solution = circuit.solve()
     except UnconnectedCircuitError:
@@ -119,7 +194,9 @@ def main(argv=None) -> None:
         s = solution.stats
         print(
             f"parse: {t1 - t0:.4f}s  compile+solve: {t2 - t1:.4f}s"
-            f"  method: {s['method']}  residual: {s['residual']:.2e}",
+            f"  method: {s['method']}  residual: {s['residual']:.2e}"
+            + (f"  iterations: {s['iterations']}" if "iterations" in s
+               else ""),
             file=sys.stderr,
         )
 

@@ -14,6 +14,10 @@ seconds).  The build runs at the first CUDA call, never at import.
   compiler flags, so a library built from other sources is never loaded.
 * A missing ``nvcc`` or a failed build raises ``RuntimeError`` with the
   compiler's output.  There is no fallback to another implementation.
+
+The host C++ sources of the port (``nodal_tpu_torch/cpp/``: the skyline
+LDLᵀ and the native netlist parser) are built by :func:`build_host_library`
+with ``g++`` into the same directory, under the same rules.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
+CPP_DIR = _PKG / "cpp"
 BUILD_DIR = _PKG / "_build"
 
 COMPILE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -156,11 +161,45 @@ def build() -> Path:
     return out
 
 
-def _raise_on_failure(cmd, returncode, stdout, stderr) -> None:
+def _raise_on_failure(cmd, returncode, stdout, stderr,
+                      what: str = "the CUDA kernels") -> None:
     if returncode != 0:
         raise RuntimeError(
-            "nvcc failed building the CUDA kernels:\n"
+            f"{Path(cmd[0]).name} failed building {what}:\n"
             f"$ {' '.join(cmd)}\n{stdout}{stderr}")
+
+
+def host_library_path(src: Path, flags: tuple[str, ...]) -> Path:
+    """Where the shared library of the host C++ source ``src`` built with
+    ``flags`` lives: its name carries a hash of both."""
+    h = hashlib.sha256(" ".join(flags).encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
+
+
+def build_host_library(src: Path, flags: tuple[str, ...]) -> Path:
+    """Compile the host C++ source ``src`` with ``g++ flags`` into
+    :func:`host_library_path` unless it exists, atomically, as
+    :func:`build` does.  A missing ``g++`` or a failed build raises
+    ``RuntimeError`` with the compiler's output."""
+    out = host_library_path(src, flags)
+    if out.exists():
+        return out
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError(f"g++ not found on PATH: {src.name} cannot be "
+                           "built")
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_private_build_dir())
+    os.close(fd)
+    try:
+        cmd = [gxx, *flags, str(src), "-o", tmp]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        _raise_on_failure(cmd, proc.returncode, proc.stdout, proc.stderr,
+                          src.name)
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
 
 
 @functools.cache

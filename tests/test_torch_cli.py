@@ -3,8 +3,11 @@
 package's (``nodal_tpu/solver_cli.py``, ``nodal_tpu/equiv_cli.py``) on the
 cases of ``tests/test_cli.py``: the printed lines (labels, order, tabs and
 the ground line byte for byte; values within 1e-12 of the largest printed
-value), the exit codes and the messages.  ``-s`` is a usage error (exit 2)
-in the port: its sparse backend is not ported yet.
+value), the exit codes and the messages.  ``-s`` and ``--native on`` on
+resistive netlists print what the JAX package prints byte for byte (both
+take the skyline LDLᵀ on the CPU); ``solver_cli -s`` on a circuit with
+branch rows is a usage error (exit 2): that half of the sparse backend is
+not ported yet.
 """
 
 import numpy as np
@@ -219,7 +222,114 @@ def test_resistance_cli_missing_file_exit_1(capsys):
 
 
 def test_resistance_cli_sparse_is_a_usage_error(tmp_netlist, capsys):
-    _, err, code = _run(capsys, equiv_cli.main,
-                        ["-s", tmp_netlist(fx.RESISTIVE_1)])
-    assert code == 2
-    assert "Queue 1 item 6" in err
+    """``-s`` is no usage error any more: on a resistive netlist it prints
+    the JAX package's line byte for byte."""
+    path = tmp_netlist(fx.RESISTIVE_1)
+    out, err, code = _run(capsys, equiv_cli.main, ["-s", path, "--device",
+                                                   "cpu"])
+    jout, _, jcode = _run(capsys, jequiv_cli.main, ["-s", path])
+    assert code == jcode == 0 and err == ""
+    assert out == jout == "R = 2.0\n"
+
+
+def _grid_csv(tmp_netlist, h=9, w=13):
+    from nodal_tpu_torch.utils.gridgen import grid_csv
+
+    return tmp_netlist(grid_csv(h, w, (1, 2), (h - 2, w - 3), 1.7),
+                       name="grid.csv")
+
+
+@pytest.mark.parametrize("flags", [["-s"], ["--native", "on"],
+                                   ["-s", "--native", "on"]],
+                         ids=["sparse", "native", "both"])
+@pytest.mark.parametrize("which", ["r1", "r3", "grid"])
+def test_resistance_cli_sparse_and_native_bytes(tmp_netlist, capsys, flags,
+                                                which):
+    path = (_grid_csv(tmp_netlist) if which == "grid" else tmp_netlist(
+        {"r1": fx.RESISTIVE_1, "r3": fx.RESISTIVE_3}[which]))
+    out, _, code = _run(capsys, equiv_cli.main,
+                        [path, "--device", "cpu", *flags])
+    jout, _, jcode = _run(capsys, jequiv_cli.main, [path, *flags])
+    assert code == jcode == 0
+    assert out == jout and out.startswith("R = ")
+
+
+@pytest.mark.parametrize("text", [fx.CIRCUIT_161,
+                                  "ra, R, 1, 5, 6\nrb, R, 1, 6, g\n"],
+                         ids=["non_resistive", "missing_node"])
+def test_resistance_cli_native_invalid_exit_1(tmp_netlist, capsys, text):
+    path = tmp_netlist(text)
+    argv = [path, "--native", "on"]
+    out, _, code = _run(capsys, equiv_cli.main, [*argv, "--device", "cpu"])
+    jout, _, jcode = _run(capsys, jequiv_cli.main, argv)
+    assert code == jcode == 1
+    assert out == jout and out.startswith("Invalid netlist\n")
+
+
+def test_resistance_cli_native_auto_takes_large_files(tmp_netlist, capsys,
+                                                      monkeypatch):
+    """``--native auto`` parses natively from 256 KiB up: with the
+    threshold lowered, the C++ parser runs; with it high, it does not."""
+    from nodal_tpu_torch import solver_cli as cli
+    from nodal_tpu_torch.utils import native
+
+    assert cli._NATIVE_SIZE_THRESHOLD == \
+        jequiv_cli._NATIVE_SIZE_THRESHOLD == 256 * 1024
+    calls = []
+    real = native.parse_stamps
+    monkeypatch.setattr(native, "parse_stamps",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    path = _grid_csv(tmp_netlist)
+    for threshold, native_calls in ((1 << 30, 0), (16, 1)):
+        monkeypatch.setattr(cli, "_NATIVE_SIZE_THRESHOLD", threshold)
+        out, _, code = _run(capsys, equiv_cli.main, [path, "--device",
+                                                     "cpu"])
+        assert code == 0 and out.startswith("R = ")
+        assert len(calls) == native_calls
+
+
+@pytest.mark.parametrize("flags", [["-s"], ["--native", "on"]],
+                         ids=["sparse", "native"])
+@pytest.mark.parametrize("which", ["r2", "grid"])
+def test_solver_cli_sparse_and_native_bytes(tmp_netlist, capsys, flags,
+                                            which):
+    from nodal_tpu_torch.utils.gridgen import grid_rows
+
+    if which == "grid":
+        rows = list(grid_rows(9, 13, (1, 2), (7, 10))) + [
+            ["src", "A", "1", "1", "g"]]
+        path = tmp_netlist("\n".join(",".join(r) for r in rows) + "\n")
+    else:
+        path = tmp_netlist(fx.RESISTIVE_2 + "src, A, 1, 1, g\n")
+    out, err, code = _run(capsys, solver_cli.main,
+                          [path, "--device", "cpu", "--stats", *flags])
+    jout, jerr, jcode = _run(capsys, jsolver_cli.main,
+                             [path, "--stats", *flags])
+    assert code == jcode == 0
+    assert out == jout
+    assert "skyline" in err and "iterations: 1" in err
+
+
+def test_solver_cli_native_hands_branch_rows_to_python(tmp_netlist, capsys):
+    """``--native on`` with branch rows: the port's native path hands the
+    netlist to the Python (dense) path, the JAX package solves it with its
+    general sparse backend; the lines agree."""
+    path = tmp_netlist(fx.CIRCUIT_161)
+    out, err, code = _run(capsys, solver_cli.main,
+                          [path, "--device", "cpu", "--native", "on",
+                           "--stats"])
+    jout, _, jcode = _run(capsys, jsolver_cli.main, [path, "--native", "on"])
+    assert code == jcode == 0
+    _assert_same_lines(out, jout)
+    assert "method: dense_lu" in err
+
+
+def test_solver_cli_default_device_sparse_raises_without_cuda(tmp_netlist):
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA")
+    path = tmp_netlist(fx.RESISTIVE_2 + "src, A, 1, 1, g\n")
+    for flags in (["-s"], ["--native", "on"]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            solver_cli.main([path, *flags])
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            equiv_cli.main([tmp_netlist(fx.RESISTIVE_1), *flags])
