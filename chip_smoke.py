@@ -80,7 +80,16 @@ the card, each repeated to see whether two solves agree bit for bit; and
 ``equiv_cli -s --native on`` on the grid's CSV and ``solver_cli -s`` on the
 card against ``--device cpu``.  The skyline and the native parser are
 built with ``g++`` from ``nodal_tpu_torch/cpp``; a phase fails if either
-does not build.
+does not build.  Then the general sparse backend (ideal-source reduction
+and bordered elimination, f64 AMG-CG and the Schur LU on the card): the
+JAX package's bench circuits at their default sizes (40k- and 100k-node
+meshes with E, VCCS and CCCS sources, a 40k mesh with ~8.4k E's, 2500
+opamp followers, a 40k mesh with 8192 VCCS border rows) through
+``Circuit(sparse=True).solve()`` cold and warm, each audited in f64,
+repeated bit for bit and (but the 100k mesh) held against the CPU's
+route, with no host skyline and no repo kernel on the card; the adjoint
+``sensitivities`` of the 40k mesh against the CPU; and ``solver_cli -s``
+on every example with branch rows, the card against ``--device cpu``.
 
 Each kernel is also timed against its plain version, against one PyTorch
 call that computes the same function (``torch.linalg.solve`` on the dense
@@ -329,8 +338,30 @@ RANDNET40K_NODES, RANDNET40K_EDGES = 40000, 160000
 RANDNET40K_RTOL = 1e-8
 # A CLI line that ends in a CG solve on the card and on the CPU: both stop
 # at ||r|| <= 1e-9·||b||, with sums rounded in other orders, so their R
-# may differ by up to the solve's tolerance.
+# may differ by up to the solve's tolerance.  So does -s on a circuit with
+# branch rows: the card's A11 solves are CG, the CPU's the skyline LDLᵀ,
+# each refined to a relative residual of 1e-10, so their x may differ by
+# up to the system's condition number times that.
 CLI_CG_RTOL = 1e-9
+# The general sparse backend (Circuit(sparse=True) on circuits with branch
+# rows): the JAX package's bench stages at their default sizes, nothing
+# cut (bench.py:358-578).  Each solve's f64 COO residual at most
+# GENERAL_AUDIT_TOL (the solves target 1e-10), x within the given share
+# of max|x| of the port's own device="cpu" route (the κ ≈ 1e12 opamp
+# chain 1e-6, the bound of tests/test_sparse_schur.py:166-168), None
+# where the audit stands alone; sensitivities of GENERAL_SENS_CONFIG on
+# the card within GENERAL_SENS_RTOL of the largest |entry| on the CPU.
+GENERAL_AUDIT_TOL = 1e-9
+GENERAL_CONFIGS = (("sparse40k", 1e-8), ("sparse100k", None),
+                   ("ebig", 1e-8), ("opmodel", 1e-6),
+                   ("vccs_border", 1e-8))
+GENERAL_SENS_CONFIG = "sparse40k"
+GENERAL_SENS_RTOL = 1e-7
+#: The examples with branch rows, whose -s runs the bordered elimination.
+BRANCH_EXAMPLES = ("1.6.1.csv", "all_components.csv", "buffer.csv",
+                   "opamp_amplifier.csv", "opmodel_amplifier.csv",
+                   "opmodel_voltage_buffer.csv", "test_1.csv",
+                   "unconnected_0.csv", "unconnected_1.csv")
 
 # Data-sheet peaks of the H100 SXM at full precision and its memory rate:
 # f32 on the CUDA cores (the tensor cores' f32 path is TF32, which is not
@@ -2979,6 +3010,250 @@ def phase_sparse() -> None:
                   "first_line": card.splitlines()[0]})
 
 
+def general_sparse_rows(n_nodes: int, h: int = 100):
+    """``bench.py:bench_general_sparse``'s circuit: an h-row resistor mesh
+    with 32 E, 16 VCCS and a CCCS, grounded only through the sources."""
+    from nodal_tpu_torch.utils.gridgen import grid_rows
+
+    w = max(n_nodes // h, 8)
+    rows = list(grid_rows(h, w))
+    e_cols = list(range(1, w, max(w // 32, 1)))[:32]
+    d_cols = list(range(2, w, max(w // 16, 1)))[:16]
+    for k, col in enumerate(e_cols):
+        rows.append([f"e{k}", "E", str(1.0 + 0.1 * k), f"n0_{col}", "g"])
+    for k, col in enumerate(d_cols):
+        rows.append([f"d{k}", "VCCS", "0.3", f"n{h // 2}_{col}", "g",
+                     f"n0_{e_cols[k % len(e_cols)]}", "g"])
+    rows.append(["rdrv", "R", "2", f"n{h - 1}_5", f"n{h - 1}_6"])
+    rows.append(["f1", "CCCS", "1.5", f"n{h // 3}_4", "g",
+                 f"n{h - 1}_5", f"n{h - 1}_6", "rdrv"])
+    return rows
+
+
+def large_border_rows(n_nodes: int = 40000, h: int = 100):
+    """``bench.py:bench_large_border``'s circuit: an h-row mesh with an E
+    to ground on every top node and E's between rows 2–41 (~8.4k ideal
+    sources at 40k nodes)."""
+    from nodal_tpu_torch.utils.gridgen import grid_rows
+
+    w = max(n_nodes // h, 4)
+    rows = list(grid_rows(h, w))
+    for col in range(w):
+        rows.append([f"eg{col}", "E", str(1.0 + 0.001 * col),
+                     f"n0_{col}", "g"])
+    for r in range(2, min(42, h - 1), 2):
+        for col in range(w):
+            rows.append([f"e{r}_{col}", "E", str(0.01 * r),
+                         f"n{r}_{col}", f"n{r + 1}_{col}"])
+    return rows
+
+
+def big_border_vccs_rows(n_nodes: int = 40000, m: int = 8192,
+                         h: int = 100):
+    """``bench.py:bench_big_border_vccs``'s circuit: an h-row mesh grounded
+    at one corner, a current source, and m VCCS border rows."""
+    from nodal_tpu_torch.utils.gridgen import grid_rows
+
+    w = max(n_nodes // h, 8)
+    rows = list(grid_rows(h, w))
+    rows.append(["rg", "R", "1", "n0_0", "g"])
+    rows.append(["src", "A", "1", f"n{h // 2}_{w // 2}", "g"])
+    for k in range(m):
+        i, j = k % (h - 1), (k * 7) % (w - 1)
+        ci, cj = (k * 3) % h, (k * 11) % w
+        rows.append([f"d{k}", "VCCS", "0.01", f"n{i}_{j}", "g",
+                     f"n{ci}_{cj}", "g"])
+    return rows
+
+
+def general_rows(label: str):
+    """The rows of one of GENERAL_CONFIGS, at bench.py's default size."""
+    return {"sparse40k": lambda: general_sparse_rows(40000),
+            "sparse100k": lambda: general_sparse_rows(100000),
+            "ebig": lambda: large_border_rows(40000),
+            "opmodel": lambda: opchain_rows(2500),
+            "vccs_border": lambda: big_border_vccs_rows(40000, 8192),
+            }[label]()
+
+
+def coo_audit(stamps, x: np.ndarray) -> float:
+    """The f64 COO residual ``max|b − G x| / max(max|b|, 1)`` of the
+    netlist's own values, straight from the stamp entries."""
+    from nodal_tpu_torch.models.stamps import stamp_values_np
+
+    g, r = stamp_values_np(stamps, stamps.params.astype(np.float64))
+    b = np.zeros(stamps.n)
+    np.add.at(b, stamps.rhs_rows, r)
+    y = np.zeros(stamps.n)
+    np.add.at(y, stamps.g_rows, g * x[stamps.g_cols])
+    return float(np.max(np.abs(b - y)) / max(np.max(np.abs(b)), 1.0))
+
+
+@contextlib.contextmanager
+def general_log():
+    """Records what the bordered elimination spends inside the block, each
+    span between two synchronizes: the ideal-source reduction plan, the
+    AMG set-up (host), each factorization (YB's A11 solves, S and its
+    LU; its iterations), the Schur LU alone, and the calls of the host
+    skyline."""
+    from nodal_tpu_torch.ops import amg, reduce_e, skyline, sparse_schur
+
+    log = {"reduce_s": [], "amg_setup_s": [], "factor": [],
+           "schur_lu_s": [], "skyline_calls": 0}
+    real = (reduce_e.build_e_reduction, amg.build_hierarchy,
+            sparse_schur._factorization, sparse_schur._schur_lu,
+            skyline.factor, skyline.solve)
+
+    def timed(fn, key):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            if key == "factor":
+                log[key].append({"s": dt, "iterations": out[1],
+                                 "m": int(out[0].YB.shape[0])
+                                 if out[0] is not None else None})
+            else:
+                log[key].append(dt)
+            return out
+        return run
+
+    def host(fn):
+        def run(*args, **kw):
+            log["skyline_calls"] += 1
+            return fn(*args, **kw)
+        return run
+
+    reduce_e.build_e_reduction = timed(real[0], "reduce_s")
+    amg.build_hierarchy = timed(real[1], "amg_setup_s")
+    sparse_schur._factorization = timed(real[2], "factor")
+    sparse_schur._schur_lu = timed(real[3], "schur_lu_s")
+    skyline.factor, skyline.solve = host(real[4]), host(real[5])
+    try:
+        yield log
+    finally:
+        (reduce_e.build_e_reduction, amg.build_hierarchy,
+         sparse_schur._factorization, sparse_schur._schur_lu,
+         skyline.factor, skyline.solve) = real
+
+
+def cli_run(main, argv):
+    """``(stdout, exit code)`` of one CLI call."""
+    try:
+        return cli_output(main, argv), 0
+    except SystemExit as e:
+        return "", e.code
+
+
+def phase_general_sparse() -> None:
+    """The general sparse backend at its users' scale, on the card: the
+    five GENERAL_CONFIGS through ``Circuit(sparse=True).solve()`` (ideal-
+    source reduction, bordered elimination with f64 AMG-CG on the card and
+    the Schur LU on the card), each cold and warm, with its method,
+    iterations, host seconds and peak device memory; its f64 COO audit;
+    a fresh circuit's cold solve bit for bit; x against the port's own
+    ``device="cpu"`` route (not on ``sparse100k``); no host skyline and no
+    kernel of the repo on the card.  Then ``sensitivities`` of
+    GENERAL_SENS_CONFIG on the card against the CPU, and ``solver_cli -s``
+    on each example with branch rows, the card against ``--device cpu``."""
+    from nodal_tpu_torch import Circuit, Netlist, solver_cli
+    from nodal_tpu_torch.batch import sensitivities
+    from nodal_tpu_torch.ops import sparse_schur
+
+    check(sparse_schur._BORDER_CAP_NATIVE >= 8192,
+          "the card's border cap no longer serves vccs_border")
+    sens_circuits = None
+    for label, cpu_rtol in GENERAL_CONFIGS:
+        netlist = Netlist.from_rows(general_rows(label))
+        circuit = Circuit(netlist, sparse=True)
+        torch.cuda.reset_peak_memory_stats()
+        with general_log() as log:
+            sol, launched = counted(circuit.solve)
+            t0 = time.perf_counter()
+            warm = circuit.solve()
+            warm_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        fresh = Circuit(netlist, sparse=True).solve()
+        audit = coo_audit(circuit.stamps, sol.result)
+        out = {"phase": "general_sparse", "path": label,
+               "n": circuit.stamps.n, "nnz_raw": circuit.stamps.nnz,
+               "method": sol.stats["method"],
+               "iterations": sol.stats["iterations"],
+               "warm_iterations": warm.stats["iterations"],
+               "cold_s": sol.stats["solve_s"], "warm_s": warm_s,
+               "audit": audit, "residual": sol.stats["residual"],
+               "bit_for_bit": bool(np.array_equal(sol.result, fresh.result)
+                                   and np.array_equal(sol.result,
+                                                      warm.result)),
+               "peak_device_bytes": peak, "launches": launched,
+               "reduce_s": log["reduce_s"],
+               "amg_setup_s": log["amg_setup_s"],
+               "factor": log["factor"], "schur_lu_s": log["schur_lu_s"],
+               "skyline_calls": log["skyline_calls"]}
+        out["trace_warm"] = trace_summary(circuit.solve)
+        if cpu_rtol is None:
+            out["vs_cpu"] = "not run: the f64 COO audit stands alone"
+        else:
+            cpu = Circuit(netlist, sparse=True, device="cpu")
+            t0 = time.perf_counter()
+            cpu_sol = cpu.solve()
+            out.update(cpu_s=time.perf_counter() - t0,
+                       cpu_method=cpu_sol.stats["method"],
+                       rel_err_vs_cpu=max_rel(sol.result, cpu_sol.result))
+            if label == GENERAL_SENS_CONFIG:
+                sens_circuits = (circuit, cpu)
+        emit(out)
+        check(sol.stats["method"].endswith("schur-cuda"),
+              f"general_sparse {label}: method {sol.stats['method']}")
+        check(audit <= GENERAL_AUDIT_TOL,
+              f"general_sparse {label}: audit {audit:.3e}")
+        check(out["bit_for_bit"], f"general_sparse {label}: a repeat "
+              "differs from the first solve")
+        check(log["skyline_calls"] == 0 and not any(launched.values()),
+              f"general_sparse {label}: the host skyline ran "
+              f"{log['skyline_calls']} times; repo kernels {launched}")
+        check(cpu_rtol is None or out["rel_err_vs_cpu"] <= cpu_rtol,
+              f"general_sparse {label}: {out.get('rel_err_vs_cpu')} from "
+              "the CPU route")
+        del circuit, sol, warm, fresh
+        torch.cuda.empty_cache()
+
+    card, cpu = sens_circuits
+    node = sorted(card.netlist.nodenum)[card.stamps.n_kcl // 2]
+    t0 = time.perf_counter()
+    g_card = sensitivities(card, potential=node)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g_cpu = sensitivities(cpu, potential=node)
+    cpu_s = time.perf_counter() - t0
+    scale = max(abs(v) for v in g_cpu.values())
+    worst = max(abs(g_card[k] - g_cpu[k]) for k in g_cpu) / scale
+    emit({"phase": "general_sparse", "path": "sensitivities",
+          "circuit": GENERAL_SENS_CONFIG, "potential": node,
+          "components": len(g_card), "warm_card_s": card_s,
+          "warm_cpu_s": cpu_s, "rel_err_vs_cpu": worst})
+    check(worst <= GENERAL_SENS_RTOL,
+          f"general_sparse sensitivities: {worst:.3e} from the CPU")
+
+    examples = ROOT / "examples"
+    for name in BRANCH_EXAMPLES:
+        argv = [str(examples / name), "-s"]
+        t0 = time.perf_counter()
+        card_out, card_code = cli_run(solver_cli.main, argv)
+        card_s = time.perf_counter() - t0
+        cpu_out, cpu_code = cli_run(solver_cli.main,
+                                    [*argv, "--device", "cpu"])
+        check(card_code == cpu_code, f"solver_cli -s {name}: exit "
+              f"{card_code} on the card, {cpu_code} on the CPU")
+        worst = (same_cli_lines(card_out, cpu_out, CLI_CG_RTOL)
+                 if card_code == 0 else None)
+        emit({"phase": "cli", "argv": [name, "-s"], "exit": card_code,
+              "lines": len(card_out.splitlines()), "worst_rel_diff": worst,
+              "card_s": card_s})
+
+
 def kernel_entry(name, source, replaces, launches, t) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -3106,6 +3381,8 @@ def main() -> None:
     clock("equiv many")
     phase_sparse()
     clock("sparse")
+    phase_general_sparse()
+    clock("general sparse")
     mc_launches = phase_monte_carlo()
     clock("monte carlo")
     sens_launches = phase_sensitivities()

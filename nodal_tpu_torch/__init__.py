@@ -17,11 +17,12 @@ blocked-LU kernels, the schur tier's sub-branches, the library-LU
 ``BatchedSolver(refine="auto")`` — with ``sweep``, ``monte_carlo`` and
 ``sensitivities`` on top; and the matrix-free grid solve
 (multigrid-preconditioned CG, batched over injection fields) with the CUDA
-multigrid stencil kernels; and the resistive half of the sparse backend
-(``Circuit(sparse=True)``, ``-s``, Jacobi- and AMG-CG, the host skyline
-LDLᵀ, the native parser, multi-probe equivalent resistance).  The
-general sparse backend (circuits with branch rows under ``-s``) and the
-multi-device paths are not ported yet.  Entry points run on the card
+multigrid stencil kernels; and the sparse backend (``Circuit(sparse=True)``,
+``-s``: Jacobi- and AMG-CG, the host skyline LDLᵀ, the native parser,
+multi-probe equivalent resistance, and for circuits with branch rows the
+ideal-source reduction and the bordered elimination with its transpose
+and adjoint).  The weighted grids and the multi-device paths are not
+ported yet.  Entry points run on the card
 (``device="cuda"``) unless given ``device="cpu"``.
 
     from nodal_tpu_torch import Circuit, Netlist, monte_carlo

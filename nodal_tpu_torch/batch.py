@@ -58,7 +58,8 @@ from nodal_tpu_torch.ops.sband import (sband_fits, sband_solve,
                                        sband_solve_multi)
 from nodal_tpu_torch.ops.scalar_band import (MAX_W, node_sband_plan,
                                              sband_plan)
-from nodal_tpu_torch.ops.sparse import GENERAL_NOT_PORTED
+from nodal_tpu_torch.ops.sparse_schur import (
+    general_auto_viable, general_sparse_adjoint_gradient)
 from nodal_tpu_torch.ops.tridiag import tridiag_matvec
 from nodal_tpu_torch.utils.device import resolve_device
 
@@ -805,7 +806,9 @@ class BatchedSolver:
             elif stamps.n > _DENSE_BATCH_MAX_N:
                 raise ValueError(
                     f"circuit needs the dense batch tier but n={stamps.n} "
-                    f"exceeds its bound (n <= {_DENSE_BATCH_MAX_N})")
+                    f"exceeds its bound (n <= {_DENSE_BATCH_MAX_N}); use "
+                    "Circuit.solve with sparse=True (bordered elimination) "
+                    "for one-shot solves of large general circuits")
             else:
                 method = "dense"
         elif method in ("tridiag", "sband", "band", "block") \
@@ -1168,8 +1171,12 @@ def sensitivities(
     does not grow with the component count; finite differences would take
     one extra solve per component.
 
-    A circuit built with ``sparse=True`` raises ``NotImplementedError``:
-    its adjoint (the bordered elimination) is not ported.
+    A circuit built with ``sparse=True`` that the bordered elimination
+    can serve (:func:`~nodal_tpu_torch.ops.sparse_schur.
+    general_auto_viable`) takes its adjoint instead: one forward and one
+    transposed solve through the cached factorization, with no dense
+    [n, n] assembly; it raises ``numpy.linalg.LinAlgError`` when either
+    solve does not converge.
     """
     netlist = circuit.netlist
     stamps = _stamps_of(circuit)
@@ -1189,8 +1196,17 @@ def sensitivities(
                 "current variable)")
         idx = netlist.nums["kcl"] + netlist.anomnum[current]
     if getattr(circuit, "sparse", False):
-        raise NotImplementedError(
-            f"sensitivities of a sparse=True circuit are {GENERAL_NOT_PORTED}")
+        dev = resolve_device(circuit.device, "sensitivities")
+        if general_auto_viable(stamps, device=dev):
+            pbar, _, info_f, info_a = general_sparse_adjoint_gradient(
+                stamps, idx, device=dev)
+            if not (bool(info_f.converged) and bool(info_a.converged)):
+                raise np.linalg.LinAlgError(
+                    "adjoint solve did not converge (residuals "
+                    f"{float(info_f.residual):.2e} fwd / "
+                    f"{float(info_a.residual):.2e} adj)")
+            return {name: float(pbar[slot])
+                    for name, slot in stamps.param_slot.items()}
 
     g = _adjoint_grad(circuit, {idx: 1.0}, dtype)
     return {name: float(g[slot]) for name, slot in stamps.param_slot.items()}

@@ -10,15 +10,17 @@ entry pattern:
 assembles and solves on the circuit's device (default ``"cuda"``, which
 raises when CUDA is absent; ``device="cpu"`` runs the plain torch path).
 There is no automatic routing of small circuits to the host: a circuit
-runs where it is asked.  ``Circuit(..., sparse=True)`` solves a resistive
-circuit through the sparse backend (:func:`~nodal_tpu_torch.ops.sparse.
-solve_sparse_system`: Jacobi- or AMG-CG on the card, the skyline LDLᵀ
-first on the CPU).
+runs where it is asked.  ``Circuit(..., sparse=True)`` solves through the
+sparse backend (:func:`~nodal_tpu_torch.ops.sparse.solve_sparse_system`:
+a resistive circuit by Jacobi- or AMG-CG on the card, the skyline LDLᵀ
+first on the CPU; a circuit with branch rows by ideal-source reduction and
+bordered elimination, :mod:`nodal_tpu_torch.ops.sparse_schur`).
 
 Error policy, as in the JAX package: after every solve the relative
 residual ``max|G x − b| / max(|b|, 1)`` is checked.  A non-finite or
 large-residual solution takes a pivoted f64 dense rescue on the same
-device; if that fails too, the connectivity diagnosis runs: a node that
+device (above ``_DENSE_RESCUE_MAX_N`` unknowns the bordered elimination);
+if that fails too, the connectivity diagnosis runs: a node that
 cannot reach ground raises :class:`UnconnectedCircuitError`, anything else
 ``numpy.linalg.LinAlgError``.
 """
@@ -40,8 +42,8 @@ from nodal_tpu_torch.ops import dense_solve
 from nodal_tpu_torch.ops.assemble import assemble_dense
 from nodal_tpu_torch.ops.band import band_matvec, band_plan
 from nodal_tpu_torch.ops.block_thomas import band_solve
-from nodal_tpu_torch.ops.sparse import (GENERAL_NOT_PORTED,
-                                        solve_sparse_system)
+from nodal_tpu_torch.ops.sparse import solve_sparse_system
+from nodal_tpu_torch.ops.sparse_schur import solve_general_auto
 from nodal_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -57,8 +59,7 @@ _RESIDUAL_TOL = {torch.float32: 3e-2, torch.float64: 1e-3}
 _RESIDUAL_WARN = 1e-4
 
 # Above this many unknowns the dense f64 rescue is not attempted (an n² f64
-# matrix would be enormous).  The JAX package's rescue there is the
-# bordered elimination of its general sparse backend, not ported yet.
+# matrix would be enormous): the rescue there is the bordered elimination.
 _DENSE_RESCUE_MAX_N = 16384
 
 
@@ -68,9 +69,7 @@ class Circuit:
     Args:
         netlist: a finalized :class:`Netlist`.
         sparse: parity flag with the reference CLI ``-s``: solve through
-            the sparse backend.  Only its resistive half is ported:
-            ``solve()`` raises ``NotImplementedError`` on a sparse circuit
-            with branch rows.
+            the sparse backend.
         dtype: ``torch.float64`` (default, the JAX package's dtype under
             x64) or ``torch.float32``.
         quirks: reference bit-compatibility switches.
@@ -113,15 +112,18 @@ class Circuit:
         dtype_name = str(self.dtype).removeprefix("torch.")
         stats: dict = {"dtype": dtype_name, "backend": dev.type}
         if self.sparse:
-            if self.stamps.n != self.stamps.n_kcl:
-                raise NotImplementedError(
-                    "Circuit(sparse=True).solve() of a circuit with branch "
-                    f"rows is {GENERAL_NOT_PORTED}")
-            x, info = solve_sparse_system(self.stamps, self.stamps.params,
-                                          dtype=self.dtype, device=dev)
-            residual = info.residual
+            try:
+                x, info = solve_sparse_system(self.stamps,
+                                              self.stamps.params,
+                                              dtype=self.dtype, device=dev)
+            except LinAlgError:
+                # A structural singularity inside the bordered elimination:
+                # the reference's diagnosis of its dense LinAlgError
+                # (nodal.py:328-335), floating subcircuit or singular.
+                self._raise_singular()
+            residual = float(info.residual)
             stats["method"] = info.method
-            stats["iterations"] = info.iterations
+            stats["iterations"] = int(info.iterations)
         else:
             params = torch.as_tensor(self.stamps.params, dtype=self.dtype,
                                      device=dev)[None]
@@ -189,20 +191,25 @@ class Circuit:
         ``x`` host numpy f64, NaN with an infinite residual when the f64
         factorization fails too.
 
-        Above ``_DENSE_RESCUE_MAX_N`` unknowns the connectivity check runs
-        first; a connected circuit then raises ``NotImplementedError``:
-        that rescue (the bordered elimination) is not ported, and the
-        system must not be reported singular.
+        Above ``_DENSE_RESCUE_MAX_N`` unknowns the rescue is the bordered
+        elimination (:func:`~nodal_tpu_torch.ops.sparse_schur.
+        solve_general_auto`) on the same device.  Only its LinAlgError
+        (a singular system) and ValueError (a border over the caps) count
+        as a failed rescue: anything else, a CUDA fault among them,
+        propagates.
         """
         n = self.stamps.n
         if n > _DENSE_RESCUE_MAX_N:
-            if not is_connected(self.netlist):
-                logger.error("Model error: unconnected circuit")
-                raise UnconnectedCircuitError
-            raise NotImplementedError(
-                f"the primary solve of {n} unknowns missed its residual "
-                f"gate, and the rescue above {_DENSE_RESCUE_MAX_N} "
-                f"unknowns is {GENERAL_NOT_PORTED}")
+            try:
+                x, info = solve_general_auto(self.stamps, self.stamps.params,
+                                             device=dev)
+            except (LinAlgError, ValueError) as e:
+                logger.error(
+                    "the primary solve of %d unknowns missed its residual "
+                    "gate and the bordered-elimination rescue failed: %s",
+                    n, e)
+                return np.full(n, np.nan), np.inf
+            return x, float(info.residual)
         logger.debug("primary solve failed residual check; retrying in f64")
         params = torch.as_tensor(self.stamps.params, dtype=torch.float64,
                                  device=dev)[None]

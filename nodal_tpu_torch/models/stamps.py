@@ -92,8 +92,10 @@ class StampTensors:
     params: np.ndarray  # float64[n_components] default component values
     param_slot: dict[str, int] = field(default_factory=dict)
     # Per-anomalous-component metadata in anomnum (branch-row) order —
-    # consumed by the voltage-constraint reduction (not ported yet) to
-    # recognize ideal-source branch rows without reparsing the netlist.  Empty for synthetic stamp objects.
+    # consumed by the voltage-constraint reduction of
+    # :mod:`nodal_tpu_torch.ops.reduce_e` to recognize ideal-source branch
+    # rows without reparsing the netlist.  Empty for synthetic stamp
+    # objects.
     anom_types: tuple = ()              # e.g. ("E", "VCCS", ...)
     anom_a: np.ndarray = field(         # anode row index, -1 for ground
         default_factory=lambda: np.zeros(0, np.int32))

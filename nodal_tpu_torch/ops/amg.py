@@ -20,8 +20,11 @@ coarsest level of every hierarchy that coarsens to the end), so the cycle
 applies it with one product instead of 66 sweeps of launches.
 
 The V(1,1) cycle with symmetric smoothing and Galerkin coarse operators is
-SPD, so plain CG remains valid.  Not ported: ``pack_hierarchy`` /
-``unpack_hierarchy``, which serve only the general sparse backend.
+SPD, so plain CG remains valid.  Not carried over: ``pack_hierarchy`` /
+``unpack_hierarchy``, the JAX package's packing of the hierarchy into two
+transfer buffers for its remote accelerator; the general sparse backend
+here (:mod:`nodal_tpu_torch.ops.sparse_schur`) takes
+:func:`hierarchy_arrays` on its device.
 """
 
 from __future__ import annotations

@@ -20,9 +20,9 @@ grounded Laplacian, SPD) with ``preconditioner="auto"``:
 
 ``preconditioner="jacobi"`` or ``"amg"`` forces the Krylov route on either
 device.  A system with branch equations (E, controlled sources) is not
-SPD: ``general="krylov"`` solves it with Jacobi-BiCGStab, and
-``general="auto"`` (the JAX package's bordered elimination) raises
-``NotImplementedError``: that general half is not ported yet.
+SPD: ``general="auto"`` solves it by ideal-source reduction and bordered
+elimination (:func:`nodal_tpu_torch.ops.sparse_schur.solve_general_auto`,
+on the card on CUDA), ``general="krylov"`` with Jacobi-BiCGStab.
 """
 
 from __future__ import annotations
@@ -40,11 +40,8 @@ from nodal_tpu_torch.ops import skyline
 from nodal_tpu_torch.ops.amg import build_hierarchy, make_amg_preconditioner
 from nodal_tpu_torch.ops.assemble import assemble_rhs
 from nodal_tpu_torch.ops.cg import bicgstab, cg
+from nodal_tpu_torch.ops.sparse_schur import solve_general_auto
 from nodal_tpu_torch.utils.device import resolve_device
-
-#: What the general (non-SPD) sparse solve says.
-GENERAL_NOT_PORTED = ("not ported yet (the general sparse backend, "
-                      "ROADMAP.md Queue 1 item 6)")
 
 
 @dataclass(frozen=True)
@@ -220,13 +217,15 @@ def solve_sparse_system(stamps: StampTensors, params, dtype=torch.float64,
                         preconditioner: str = "auto", general: str = "auto",
                         device="cuda"):
     """Solve the full MNA system sparsely on ``device``.  Returns ``(x [n]
-    tensor of dtype on device, SparseSolveInfo)``.
+    tensor of dtype on device, SparseSolveInfo)``, or ``GeneralSolveInfo``
+    from the bordered elimination of a system with branch equations.
 
     ``params`` are the component values (numpy or tensor, [n_components]);
     ``rhs`` overrides the netlist's own source vector (the equivalent-
     resistance probe injection).  ``tol`` defaults to 1e-10 in f64 and 1e-6
     in f32; the Krylov routes stop at ||r|| <= tol·||b|| or 20·n
-    iterations.
+    iterations; the bordered elimination solves in f64 to the relative
+    residual ``max(tol, 1e-12)`` and casts x to ``dtype``.
     """
     if preconditioner not in ("auto", "jacobi", "amg"):
         raise ValueError(f"unknown preconditioner {preconditioner!r}")
@@ -235,10 +234,16 @@ def solve_sparse_system(stamps: StampTensors, params, dtype=torch.float64,
     dev = resolve_device(device, "solve_sparse_system")
     spd = stamps.n == stamps.n_kcl  # no branch equations -> SPD Laplacian
     if not spd and general != "krylov":
-        raise NotImplementedError(
-            "solve_sparse_system on a circuit with branch equations "
-            f"(E, controlled sources) is {GENERAL_NOT_PORTED}; "
-            "general='krylov' forces Jacobi-BiCGStab")
+        gtol = tol
+        if gtol is None:
+            gtol = 1e-10 if dtype == torch.float64 else 1e-6
+        x, info = solve_general_auto(
+            stamps,
+            torch.as_tensor(params, dtype=torch.float64).cpu().numpy(),
+            rhs=None if rhs is None else torch.as_tensor(
+                rhs, dtype=torch.float64).cpu().numpy(),
+            tol=max(float(gtol), 1e-12), device=dev)
+        return torch.as_tensor(x, dtype=dtype, device=dev), info
     topo = _topology(stamps)
     if spd and preconditioner == "auto" and dev.type == "cpu":
         direct = _solve_spd_skyline(

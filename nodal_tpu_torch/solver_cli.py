@@ -6,12 +6,12 @@
 Counterpart of ``nodal_tpu/solver_cli.py``.  Parity target: reference
 solver.py — the same positional netlist path, exit codes (missing file →
 1, unconnected circuit → 1) and printed format.  ``--device`` picks where
-the solve runs (default ``cuda``).  ``-s/--sparse`` solves a resistive
-circuit through the sparse backend; on a circuit with branch rows it is a
-usage error (exit 2), since that half of the backend is not ported yet.
+the solve runs (default ``cuda``).  ``-s/--sparse`` solves through the
+sparse backend: a resistive circuit by CG (the skyline LDLᵀ on the CPU),
+any other by ideal-source reduction and bordered elimination.
 ``--native`` parses with the C++ parser and solves sparsely (``auto``:
-netlists over 256 KiB); a netlist with branch rows goes on to the Python
-path.
+netlists over 256 KiB); a solve that does not converge goes on to the
+Python path.
 """
 
 from __future__ import annotations
@@ -23,8 +23,6 @@ import sys
 import time
 
 import numpy as np
-
-from nodal_tpu_torch.ops.sparse import GENERAL_NOT_PORTED
 
 _DTYPES = ("f32", "f64")
 
@@ -41,8 +39,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "-s", "--sparse", action="store_true",
-        help="use the sparse/iterative backend (resistive circuits; with "
-        f"branch rows it is {GENERAL_NOT_PORTED})",
+        help="use the sparse backend (CG on resistive circuits; ideal-"
+        "source reduction and bordered elimination on circuits with "
+        "voltage or controlled sources)",
     )
     parser.add_argument(
         "--dtype", choices=_DTYPES, default="f64",
@@ -59,8 +58,8 @@ def build_parser() -> argparse.ArgumentParser:
         "--native",
         choices=("auto", "on", "off"),
         default="auto",
-        help="use the C++ netlist parser + sparse solve for large resistive "
-        "netlists (auto: over 256 KiB)",
+        help="use the C++ netlist parser + sparse solve for large netlists "
+        "(auto: over 256 KiB)",
     )
     parser.add_argument(
         "--compat-vccs",
@@ -103,9 +102,10 @@ def wants_native(args) -> bool:
 
 def _try_native(args) -> bool:
     """Native path: C++ parse -> stamp tensors -> sparse solve on
-    ``--device`` -> print.  Returns False, having printed nothing, for a
-    netlist with branch rows or a solve that did not converge: the Python
-    path takes those."""
+    ``--device`` (the bordered elimination for a netlist with branch rows)
+    -> print.  Returns False, having printed nothing, for a solve that did
+    not converge: the Python path, with its rescue and its singularity
+    diagnosis, takes those."""
     from nodal_tpu_torch.models.stamps import Quirks
     from nodal_tpu_torch.ops.sparse import solve_sparse_system
     from nodal_tpu_torch.utils import native
@@ -115,8 +115,6 @@ def _try_native(args) -> bool:
     with open(args.netlist_path, "rb") as fh:
         stamps, symbols = native.parse_stamps(fh.read(), quirks=quirks)
     t1 = time.perf_counter()
-    if stamps.n != stamps.n_kcl:
-        return False
     x, info = solve_sparse_system(stamps, stamps.params,
                                   dtype=torch_dtype(args.dtype),
                                   device=args.device)
@@ -128,6 +126,8 @@ def _try_native(args) -> bool:
     lines = [f"Ground node: {symbols.ground}"]
     for name, row in sorted(symbols.node_rows()):
         lines.append(f"e({name}) \t= {x[row]}")
+    for name, row in sorted(symbols.anomalous_rows()):
+        lines.append(f"i({name}) \t= {x[row]}")
     print("\n".join(lines))
     if args.stats:
         print(
@@ -159,9 +159,6 @@ def main(argv=None) -> None:
     circuit = Circuit(netlist, sparse=args.sparse,
                       dtype=torch_dtype(args.dtype), quirks=quirks,
                       device=args.device)
-    if args.sparse and circuit.stamps.n != circuit.stamps.n_kcl:
-        parser.error("-s/--sparse on a circuit with branch rows is "
-                     f"{GENERAL_NOT_PORTED}")
     try:
         solution = circuit.solve()
     except UnconnectedCircuitError:

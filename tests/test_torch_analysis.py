@@ -239,11 +239,21 @@ def test_sensitivities_ground_and_errors_match_jax():
             sens(c, current="rs0")
 
 
-def test_sensitivities_sparse_not_implemented():
-    tc = Circuit(Netlist.from_rows(ladder_rows(8)), sparse=True,
-                 device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tbatch.sensitivities(tc, potential="n0")
+@pytest.mark.parametrize("rows,kw", [
+    (ladder_rows(8), {"potential": "n0"}),
+    (_161_ROWS, {"potential": "2"}), (_161_ROWS, {"current": "e1"})],
+    ids=["ladder", "161_e2", "161_ie1"])
+def test_sensitivities_sparse_matches_jax(rows, kw):
+    """A ``sparse=True`` circuit takes the bordered elimination's adjoint
+    in both packages: the same gradients within 1e-8 of the largest."""
+    jc = J.Circuit(J.Netlist.from_rows(rows), sparse=True)
+    tc = Circuit(Netlist.from_rows(rows), sparse=True, device="cpu")
+    got = tbatch.sensitivities(tc, **kw)
+    want = jbatch.sensitivities(jc, **kw)
+    assert list(got) == list(want)
+    scale = max(max(abs(v) for v in want.values()), 1.0)
+    for name in want:
+        assert abs(got[name] - want[name]) <= 1e-8 * scale, name
 
 
 @pytest.mark.parametrize("text,expected", [

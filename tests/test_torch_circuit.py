@@ -244,16 +244,23 @@ def test_zero_resistance_rejected_in_both():
                            ["e1", "E", "1", "1", "g"]]))
 
 
-def test_above_the_rescue_cap(monkeypatch):
-    """Past ``_DENSE_RESCUE_MAX_N`` a failed solve is never called
-    singular: an unconnected circuit still raises
-    ``UnconnectedCircuitError``, a connected one ``NotImplementedError``."""
+def test_above_the_rescue_cap_matches_jax(monkeypatch):
+    """Past ``_DENSE_RESCUE_MAX_N`` the rescue is the bordered elimination
+    in both packages: an unconnected circuit still raises
+    ``UnconnectedCircuitError``, and the buffer at extreme values, whose
+    f32 LU misses the gate, is rescued to the JAX package's answer."""
+    import nodal_tpu.circuit as jcircuit
+
     monkeypatch.setattr(tcircuit, "_DENSE_RESCUE_MAX_N", 0)
+    monkeypatch.setattr(jcircuit, "_DENSE_RESCUE_MAX_N", 0)
+    with pytest.raises(J.UnconnectedCircuitError):
+        J.Circuit(J.Netlist("examples/unconnected_1.csv")).solve()
     with pytest.raises(UnconnectedCircuitError):
         Circuit(Netlist("examples/unconnected_1.csv"), device="cpu").solve()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        Circuit(Netlist.from_rows(_BUFFER_EXTREME), dtype=torch.float32,
-                device="cpu").solve()
+    js, ts = _both(_BUFFER_EXTREME, jnp.float32, torch.float32)
+    _assert_same_solution(js, ts, 1e-10)
+    assert ts.stats["method"] == "f64_rescue"
+    assert ts.stats["residual"] <= 1e-10
     # A solve that passes its gate never reaches the rescue.
     s = Circuit(Netlist("examples/1.6.1.csv"), device="cpu").solve()
     assert s.stats["method"] == "dense_lu"
@@ -286,11 +293,17 @@ def test_default_device_is_cuda_and_raises_without_it():
         circuit.batched_solver()
 
 
-def test_sparse_raises_not_implemented():
-    circuit = Circuit(Netlist("examples/1.6.1.csv"), sparse=True,
-                      device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        circuit.solve()
+def test_sparse_matches_jax():
+    """``Circuit(sparse=True)`` on a circuit with branch rows: the ideal-
+    source reduction and the bordered elimination, as in the JAX
+    package."""
+    js = J.Circuit(J.Netlist("examples/1.6.1.csv"), sparse=True).solve()
+    ts = Circuit(Netlist("examples/1.6.1.csv"), sparse=True,
+                 device="cpu").solve()
+    _assert_same_solution(js, ts, 1e-10)
+    assert ts.stats["method"] == "ereduce+schur-skyline"
+    assert ts.stats["iterations"] == js.stats["iterations"]
+    assert str(ts) == str(js)
 
 
 def test_constructor_checks():

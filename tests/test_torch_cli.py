@@ -6,8 +6,8 @@ the ground line byte for byte; values within 1e-12 of the largest printed
 value), the exit codes and the messages.  ``-s`` and ``--native on`` on
 resistive netlists print what the JAX package prints byte for byte (both
 take the skyline LDLᵀ on the CPU); ``solver_cli -s`` on a circuit with
-branch rows is a usage error (exit 2): that half of the sparse backend is
-not ported yet.
+branch rows prints what the JAX package prints byte for byte (both run
+the ideal-source reduction and the bordered elimination on the skyline).
 """
 
 import numpy as np
@@ -165,11 +165,15 @@ def test_solver_cli_stats_and_dtype(tmp_netlist, capsys):
     assert "method: dense_lu" in err and "residual:" in err
 
 
-def test_solver_cli_sparse_is_a_usage_error(tmp_netlist, capsys):
+def test_solver_cli_sparse_matches_jax(tmp_netlist, capsys):
+    """``-s`` on a circuit with branch rows runs the bordered elimination
+    and prints what the JAX package prints, byte for byte."""
     path = tmp_netlist(fx.CIRCUIT_161)
-    _, err, code = _run(capsys, solver_cli.main, ["-s", path])
-    assert code == 2
-    assert "Queue 1 item 6" in err
+    out, _, code = _run(capsys, solver_cli.main,
+                        ["-s", path, "--device", "cpu"])
+    jout, _, jcode = _run(capsys, jsolver_cli.main, ["-s", path])
+    assert code == jcode == 0
+    assert out == jout
 
 
 def test_solver_cli_default_device_raises_without_cuda(tmp_netlist):
@@ -311,17 +315,22 @@ def test_solver_cli_sparse_and_native_bytes(tmp_netlist, capsys, flags,
 
 
 def test_solver_cli_native_hands_branch_rows_to_python(tmp_netlist, capsys):
-    """``--native on`` with branch rows: the port's native path hands the
-    netlist to the Python (dense) path, the JAX package solves it with its
-    general sparse backend; the lines agree."""
+    """``--native on`` with branch rows: the native path keeps the netlist
+    and solves it with the general sparse backend (the bordered
+    elimination on the native stamps, which carry no ideal-source
+    metadata to reduce), as the JAX package does: the same bytes and the
+    same method.  Only a solve that does not converge goes on to the
+    Python path."""
     path = tmp_netlist(fx.CIRCUIT_161)
     out, err, code = _run(capsys, solver_cli.main,
                           [path, "--device", "cpu", "--native", "on",
                            "--stats"])
-    jout, _, jcode = _run(capsys, jsolver_cli.main, [path, "--native", "on"])
+    jout, jerr, jcode = _run(capsys, jsolver_cli.main,
+                             [path, "--native", "on", "--stats"])
     assert code == jcode == 0
-    _assert_same_lines(out, jout)
-    assert "method: dense_lu" in err
+    assert out == jout
+    assert "method: native+schur-skyline" in err
+    assert "method: native+schur-skyline" in jerr
 
 
 def test_solver_cli_default_device_sparse_raises_without_cuda(tmp_netlist):

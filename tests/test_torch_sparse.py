@@ -12,7 +12,8 @@ package's (``nodal_tpu/ops/sparse.py``) on identical stamps
   scatter there), so a residual that crosses the threshold within rounding
   on one side may take one more step;
 * Jacobi-BiCGStab on a circuit with branch rows (``general="krylov"``),
-  and ``NotImplementedError`` for ``general="auto"`` there.
+  and the bordered elimination for ``general="auto"`` there
+  (``tests/test_torch_sparse_schur.py`` holds it whole).
 """
 
 import numpy as np
@@ -171,13 +172,30 @@ def test_bicgstab_on_branch_rows_matches_jax():
                                    preconditioner="amg", device="cpu")
 
 
-def test_general_auto_on_branch_rows_not_implemented():
-    _, tst = _pair(BRANCH)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        sparse.solve_sparse_system(tst, tst.params, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        Circuit(Netlist.from_rows(BRANCH), sparse=True,
-                device="cpu").solve()
+def test_general_auto_on_branch_rows_matches_jax():
+    """``general="auto"`` on a circuit with branch rows: the bordered
+    elimination in both packages, x within 1e-9 of max|x| in f64 and f32
+    (each cast from the f64 solve), the same method and iterations."""
+    jst, tst = _pair(BRANCH)
+    for dtype, jdtype, tol in ((torch.float64, jnp.float64, 1e-10),
+                               (torch.float32, jnp.float32, 1e-6)):
+        x, info = sparse.solve_sparse_system(tst, tst.params, dtype=dtype,
+                                             device="cpu")
+        jx, jinfo = jsparse.solve_sparse_system(jst, jst.params,
+                                                dtype=jdtype)
+        jx = np.asarray(jx, dtype=np.float64)
+        assert x.dtype == dtype
+        assert info.method == jinfo.method == "ereduce+schur-skyline"
+        assert int(info.iterations) == int(jinfo.iterations)
+        assert bool(info.converged) and float(info.residual) <= tol
+        assert np.abs(x.double().numpy() - jx).max() <= \
+            1e-9 * np.abs(jx).max()
+    sol = Circuit(Netlist.from_rows(BRANCH), sparse=True,
+                  device="cpu").solve()
+    jsol = JCircuit(JNetlist.from_rows(BRANCH), sparse=True).solve()
+    assert sol.stats["method"] == jsol.stats["method"]
+    assert np.abs(sol.result - jsol.result).max() <= \
+        1e-9 * np.abs(jsol.result).max()
 
 
 def test_bicgstab_batch_freezes_each_sample():

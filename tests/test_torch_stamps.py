@@ -111,6 +111,7 @@ def test_port_imports_neither_jax_nor_reference():
             "nodal_tpu_torch.solver_cli, nodal_tpu_torch.equiv_cli, "
             "nodal_tpu_torch.ops.sparse, nodal_tpu_torch.ops.amg, "
             "nodal_tpu_torch.ops.skyline, nodal_tpu_torch.utils.native, "
+            "nodal_tpu_torch.ops.sparse_schur, nodal_tpu_torch.ops.reduce_e, "
             "sys; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'nodal_tpu' not in sys.modules, 'nodal_tpu imported'")
