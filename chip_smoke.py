@@ -91,6 +91,20 @@ route, with no host skyline and no repo kernel on the card; the adjoint
 ``sensitivities`` of the 40k mesh against the CPU; and ``solver_cli -s``
 on every example with branch rows, the card against ``--device cpu``.
 
+Last, the weighted grids and lattices (``phase_weighted``): the three
+kernels of ``csrc/weighted_stencil.cu`` against their plain versions at
+the grids' and lattices' shapes (1024², 64² at B 1024, 256² at B 64,
+1000², odd and tiny grids, 128³, 12×16×16 at B 1024, an odd lattice, the
+solves' coarsest levels, fields with zero-conductance edges) in f32 and
+f64, then timed; the knight's-move R of the 1024² grid with a random metal
+layer (f32 and f64), of the 1000² grid (125² coarsest level, one launch a
+sweep), of 64² fabrics at B = 1024 and 256² at B = 64, of the 128³ and
+12×16×16 (B = 1024) lattices through the user's entry points, each with
+its iterations, launches and host ms, three batched samples against
+single solves; the g = 1 grid against ``grid_equivalent_resistance``, the
+card against the CPU route at 256² and 16×32×32 in f64, dR/dgx at 1024²
+against central differences, and a profile of the 1024² f32 solve.
+
 Each kernel is also timed against its plain version, against one PyTorch
 call that computes the same function (``torch.linalg.solve`` on the dense
 systems) and against its bound on the card; the blocked LU's and the block
@@ -362,6 +376,55 @@ BRANCH_EXAMPLES = ("1.6.1.csv", "all_components.csv", "buffer.csv",
                    "opamp_amplifier.csv", "opmodel_amplifier.csv",
                    "opmodel_voltage_buffer.csv", "test_1.csv",
                    "unconnected_0.csv", "unconnected_1.csv")
+
+# The weighted grids and lattices (phase_weighted).  Kernel-check shapes
+# [B, d, h, w] (a grid is d = 1): the 1024² metal layer, fabrics of
+# 64² (B 1024) and 256² (B 64), the 1000² grid (125² coarsest), odd and
+# tiny grids; the 128³ lattice, the 12×16×16 bench lattice at B 1024, an
+# odd lattice.  The coarsest levels of the solves go through the block
+# kernel too.
+WEIGHTED_SHAPES = [(1, 1, 1024, 1024), (1024, 1, 64, 64), (64, 1, 256, 256),
+                   (1, 1, 1000, 1000), (3, 1, 17, 33), (2, 1, 8, 8),
+                   (1, 128, 128, 128), (1024, 12, 16, 16), (2, 5, 7, 9)]
+WEIGHTED_BLOCK_SHAPES = [(1024, 1, 8, 8), (64, 1, 8, 8), (1, 8, 8, 8),
+                         (1024, 6, 8, 8)]
+# Fields with about a fifth of their edges at zero conductance and isolated
+# nodes (deg = 0, x = r = 0 there: ω / max(deg, tiny) · 0 must stay 0).
+WEIGHTED_ZERO_SHAPES = [(2, 1, 64, 64), (2, 4, 16, 16)]
+WEIGHTED_SWEEPS = (1, 2, 96)
+# A sweep and a residual equal their plain versions bit for bit (no FMA
+# contraction); only the restriction's block sums and the mean
+# projections are summed in another order.
+WEIGHTED_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+WEIGHTED_G = (0.5, 2.0)     # conductances ~ U(0.5, 2.0)
+# The side of BASELINE config 5's grid: the weighted metal layer of the
+# wgrid1024 runs, the g = 1 identity, the gradient and the profile.
+WEIGHTED_LAYER_N = 1024
+WEIGHTED_TIME_SHAPE = (1, 1, 1024, 1024)
+WEIGHTED_BLOCK_TIME_SHAPE = (1024, 1, 8, 8)   # fabric64's coarsest level
+# Solves: (label, dims, batch, dtype, tol).  Probes: the knight's move of
+# bench.py:595 about the centre of the single grid or lattice, corner to
+# corner on the batched fabrics and lattices.  fabric256 runs at tol 1e-5:
+# f32 CG stalls near 1e-6 on a 256² fabric corner to corner, in the JAX
+# package as in the port (2 of 3 and 1 of 3 samples at 300 iterations on
+# the CPU).
+WEIGHTED_RUNS = [
+    ("wgrid1024_f32", (1024, 1024), 1, torch.float32, 1e-6),
+    ("wgrid1024_f64", (1024, 1024), 1, torch.float64, 1e-10),
+    ("wgrid1000_f32", (1000, 1000), 1, torch.float32, 1e-6),
+    ("fabric64", (64, 64), 1024, torch.float32, 1e-6),
+    ("fabric256", (256, 256), 64, torch.float32, 1e-5),
+    ("lattice128", (128, 128, 128), 1, torch.float32, 1e-6),
+    ("benchlattice", (12, 16, 16), 1024, torch.float32, 1e-6),
+]
+WEIGHTED_SINGLES = ("fabric64", "benchlattice")  # 3 samples each vs singles
+WEIGHTED_BATCH_RTOL = 1e-4
+WEIGHTED_IDENTITY_RTOL = 1e-8   # g = 1 against the uniform grid, f64
+WEIGHTED_CPU_RTOL = 1e-8        # the card against the CPU route, f64
+WEIGHTED_CPU_DIMS = ((256, 256), (16, 32, 32))
+WEIGHTED_FD_EDGES = ((512, 512), (513, 513), (512, 511))   # gx edges
+WEIGHTED_FD_STEP = 1e-4
+WEIGHTED_FD_RTOL = 1e-5
 
 # Data-sheet peaks of the H100 SXM at full precision and its memory rate:
 # f32 on the CUDA cores (the tensor cores' f32 path is TF32, which is not
@@ -3254,6 +3317,526 @@ def phase_general_sparse() -> None:
               "card_s": card_s})
 
 
+# ------------------------------------------------- weighted grids, lattices
+
+def weighted_conductances(rng, shape, dtype, zero_edges: bool = False):
+    """(gx, gy, gz) on the card for [B, d, h, w] fields, ~U(0.5, 2.0) from
+    ``rng``; with ``zero_edges`` about a fifth of them zero and node
+    (0, 0, h/2, w/2) of sample 0 isolated."""
+    B, d, h, w = shape
+    gs = [rng.uniform(*WEIGHTED_G, size=s) for s in
+          ((B, d, h, w - 1), (B, d, h - 1, w), (B, d - 1, h, w))]
+    if zero_edges:
+        for g in gs:
+            g[rng.random(g.shape) < 0.2] = 0.0
+        i, j = h // 2, w // 2
+        gs[0][0, 0, i, j - 1] = gs[0][0, 0, i, j] = 0.0
+        gs[1][0, 0, i - 1, j] = gs[1][0, 0, i, j] = 0.0
+        if d > 1:
+            gs[2][0, 0, i, j] = 0.0
+    return tuple(torch.tensor(g, dtype=dtype, device="cuda") for g in gs)
+
+
+def weighted_field(rng, shape, dtype):
+    return torch.tensor(rng.standard_normal(shape), dtype=dtype,
+                        device="cuda")
+
+
+def weighted_cases(ws, shape, dtype, rng, zero_edges: bool = False):
+    """(name, kernel call, plain call) of every weighted-stencil check at
+    one shape: the residual, the matvec and the restriction; 1, 2 and 96
+    sweeps from zero and from x, with and without the fused prolongation;
+    the block kernel's coarsest solve where the field fits a block."""
+    B, d, h, w = shape
+    g = weighted_conductances(rng, shape, dtype, zero_edges)
+    x, r = weighted_field(rng, shape, dtype), weighted_field(rng, shape, dtype)
+    if zero_edges:  # no injection where a node has no edge
+        isolated = ws.degree(g) == 0
+        x[isolated] = 0.0
+        r[isolated] = 0.0
+    shift = weighted_field(rng, (B,), dtype)
+    P = functools.partial
+    cases = [("weighted_residual", P(ws.weighted_residual, x, g, r),
+              P(ws.weighted_residual_plain, x, g, r)),
+             ("weighted_residual/matvec",
+              P(ws.weighted_residual, x, g, shift=shift),
+              P(ws.weighted_residual_plain, x, g, shift=shift))]
+    even = h % 2 == 0 and w % 2 == 0 and d % ws.depth_factor(d) == 0
+    if even:
+        cases.append(("weighted_residual/restrict",
+                      P(ws.weighted_residual, x, g, r, restrict=True),
+                      P(ws.weighted_residual_plain, x, g, r, restrict=True)))
+        zc = weighted_field(rng, (B, d // ws.depth_factor(d), h // 2,
+                                  w // 2), dtype)
+    for k in WEIGHTED_SWEEPS:
+        for x0, tag in ((None, ""), (x, "/x")):
+            cases.append((f"weighted_jacobi/{k}{tag}",
+                           P(ws.weighted_jacobi, x0, r, g, sweeps=k),
+                           P(ws.weighted_jacobi_plain, x0, r, g, sweeps=k)))
+            if even and k < 96:
+                cases.append((f"weighted_jacobi/{k}{tag}/zc",
+                              P(ws.weighted_jacobi, x0, r, g, sweeps=k,
+                                zc=zc),
+                              P(ws.weighted_jacobi_plain, x0, r, g, sweeps=k,
+                                zc=zc)))
+    # The coarsest solve presumes a connected level: under its mean
+    # projection an isolated node takes ω / tiny times r's mean.
+    if (ws.block_fits(d, h, w, torch.finfo(dtype).bits // 8)
+            and not zero_edges):
+        cases += [(f"weighted_jacobi_block/{k}",
+                   P(ws.weighted_jacobi_block, r, g, sweeps=k),
+                   P(ws.weighted_jacobi_block_plain, r, g, sweeps=k))
+                  for k in WEIGHTED_SWEEPS]
+    return cases
+
+
+def check_weighted_case(name, kernel, plain, shape, dtype, worst) -> float:
+    """One weighted kernel call against its plain version: dtype, shape,
+    finite values, the largest difference over max|plain| within
+    ``WEIGHTED_RTOL``; the worst of each kernel and dtype kept in
+    ``worst``."""
+    got = kernel()
+    torch.cuda.synchronize()
+    want = plain()
+    check(got.dtype == dtype and got.shape == want.shape,
+          f"{name} returned {got.dtype} {tuple(got.shape)} at {shape}")
+    check(bool(torch.isfinite(got).all()),
+          f"{name} non-finite at {shape} {dtype}")
+    scale = float(want.abs().max()) or 1.0
+    err = float((got - want).abs().max()) / scale
+    check(err <= WEIGHTED_RTOL[dtype],
+          f"{name} differs from its plain version by {err:.3e} at {shape} "
+          f"{dtype}")
+    key = (name.split("/")[0], str(dtype))
+    worst[key] = max(worst.get(key, 0.0), err)
+    return err
+
+
+def weighted_bound(name: str, shape, dtype, sweeps: int = 1) -> dict:
+    """Bytes (x, r and the conductances read once, one field written; the
+    block kernel reads no x) and operations of one weighted kernel call: a
+    residual is 12 flops a node in a grid and 17 in a lattice, a sweep 18
+    and 26."""
+    B, d, h, w = shape
+    n = B * d * h * w
+    g = B * (d * h * (w - 1) + d * (h - 1) * w + (d - 1) * h * w)
+    item = torch.finfo(dtype).bits // 8
+    lattice = d > 1
+    if name == "weighted_residual":
+        values, flops = 3 * n + g, (17 if lattice else 12) * n
+    elif name == "weighted_jacobi":
+        values, flops = 3 * n + g, (26 if lattice else 18) * n
+    else:
+        values, flops = 2 * n + g, (26 if lattice else 18) * n * sweeps
+    return bound_ms(flops, values * item, dtype)
+
+
+def queued_ms(fn, calls: int = 20, warmup: int = 3) -> float:
+    """Device time of one ``fn()`` call when calls run back to back: CUDA
+    events around ``calls`` calls queued behind a spin kernel that holds
+    the card until the host has queued them all.  A call shorter than its
+    host work (a kernel at 1024²) leaves plain events reading the host's
+    launch rate instead (``event_median_ms``)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    # ~2 GHz: four times the host's queueing time, and at least 10 ms.
+    torch.cuda._sleep(int(2e9 * max(4 * calls * host_s, 0.01)))
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def time_weighted(ws, rng) -> dict:
+    """Kernel, plain version and bound of each weighted kernel, f32 and
+    f64: the residual and one sweep from x at 1024², the block kernel's 96
+    mean-projected sweeps at fabric64's coarsest level (B 1024, 8²).  The
+    device ms of a call back to back (``queued_ms``), and the plain events
+    (the host's rate) beside it."""
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        shape = WEIGHTED_TIME_SHAPE
+        g = weighted_conductances(rng, shape, dtype)
+        x, r = (weighted_field(rng, shape, dtype) for _ in "xr")
+        bshape = WEIGHTED_BLOCK_TIME_SHAPE
+        bg = weighted_conductances(rng, bshape, dtype)
+        br = weighted_field(rng, bshape, dtype)
+        calls = {
+            "weighted_residual": (
+                shape, 1, lambda: ws.weighted_residual(x, g, r),
+                lambda: ws.weighted_residual_plain(x, g, r)),
+            "weighted_jacobi": (
+                shape, 1, lambda: ws.weighted_jacobi(x, r, g),
+                lambda: ws.weighted_jacobi_plain(x, r, g)),
+            "weighted_jacobi_block": (
+                bshape, COARSE_SWEEPS,
+                lambda: ws.weighted_jacobi_block(br, bg,
+                                                 sweeps=COARSE_SWEEPS),
+                lambda: ws.weighted_jacobi_block_plain(
+                    br, bg, sweeps=COARSE_SWEEPS)),
+        }
+        for name, (shp, sweeps, kernel, plain) in calls.items():
+            max_abs = float((kernel() - plain()).abs().max())
+            bound = weighted_bound(name, shp, dtype, sweeps)
+            t = {"shape": shp, "ms": queued_ms(kernel),
+                 "event_ms": event_median_ms(kernel),
+                 "plain_ms": queued_ms(plain, calls=3),
+                 "max_abs_err": max_abs, "library_ms": None, **bound}
+            emit({"phase": "kernel_time", "kernel": name,
+                  "dtype": str(dtype), **t})
+            out[(name, dtype)] = t
+    return out
+
+
+def phase_weighted_kernels(ws, rng) -> dict:
+    """Each weighted kernel against its plain version at every shape of
+    ``WEIGHTED_SHAPES`` (the block kernel where a block holds the field),
+    the solves' coarsest levels and the zero-edge fields, f32 and f64;
+    then each timed.  Returns the timings."""
+    worst = {}
+    for dtype in (torch.float32, torch.float64):
+        for shape in WEIGHTED_SHAPES + WEIGHTED_BLOCK_SHAPES:
+            block_only = shape in WEIGHTED_BLOCK_SHAPES
+            errs = {}
+            for name, kernel, plain in weighted_cases(ws, shape, dtype, rng):
+                if block_only and not name.startswith("weighted_jacobi_"):
+                    continue
+                errs[name] = check_weighted_case(name, kernel, plain, shape,
+                                                 dtype, worst)
+            emit({"phase": "weighted_kernel_check", "shape": shape,
+                  "dtype": str(dtype), "tol": WEIGHTED_RTOL[dtype],
+                  "max_rel_diff": errs})
+            torch.cuda.empty_cache()
+        for shape in WEIGHTED_ZERO_SHAPES:
+            errs = {name: check_weighted_case(name, kernel, plain, shape,
+                                              dtype, worst)
+                    for name, kernel, plain in weighted_cases(
+                        ws, shape, dtype, rng, zero_edges=True)}
+            emit({"phase": "weighted_kernel_check", "shape": shape,
+                  "zero_edges": True, "dtype": str(dtype),
+                  "max_rel_diff": errs})
+    emit({"phase": "kernel_check_worst",
+          "weighted": {f"{k[0]} {k[1]}": v for k, v in worst.items()}})
+    return time_weighted(ws, rng)
+
+
+def weighted_launch_counts(ws) -> dict:
+    return {**{f.__name__: f.launches for f in
+               (ws.weighted_residual, ws.weighted_jacobi,
+                ws.weighted_jacobi_block)},
+            **{f"coarse_{k}": v for k, v in ws.coarse_solve.routes.items()}}
+
+
+def reset_weighted_counts(ws) -> None:
+    for f in (ws.weighted_residual, ws.weighted_jacobi,
+              ws.weighted_jacobi_block):
+        f.launches = 0
+    ws.coarse_solve.routes.update(block=0, sweeps=0)
+
+
+def weighted_probes(dims, batched: bool = False):
+    """The knight's move of bench.py:595 about the centre of a single grid
+    or lattice; corner to corner on a batch of fabrics or lattices."""
+    if batched:
+        return (0,) * len(dims), tuple(n - 1 for n in dims)
+    a = tuple(n // 2 for n in dims)
+    return a, a[:-2] + (a[-2] + 1, a[-1] + 2)
+
+
+def weighted_solver(gw, gw3, dims, g, tol, probes):
+    """The user's entry point for one run: R and its residual."""
+    if len(dims) == 2:
+        return functools.partial(gw.weighted_equivalent_resistance, *dims,
+                                 *g[:2], *probes, tol, device="cuda")
+    return functools.partial(gw3.weighted_equivalent_resistance_3d, *dims,
+                             *g, *probes, tol, device="cuda")
+
+
+def weighted_solve_info(gw, gw3, dims, g, tol, probes):
+    """x and SolveInfo of the run's probe field through the solve entry."""
+    rhs = gw.probe_fields(dims, *probes, g[0].shape[0], g[0].dtype, "cuda")
+    if len(dims) == 2:
+        return gw.weighted_grid_solve(*g[:2], rhs, tol=tol, device="cuda")
+    return gw3.weighted_lattice_solve(*g, rhs, tol=tol, device="cuda")
+
+
+def run_conductances(rng, dims, B, dtype):
+    """A run's conductance fields on the card, [B, ...] per axis (gz
+    omitted from a grid's use)."""
+    if len(dims) == 2:
+        h, w = dims
+        shapes = ((B, h, w - 1), (B, h - 1, w))
+    else:
+        d, h, w = dims
+        shapes = ((B, d, h, w - 1), (B, d, h - 1, w), (B, d - 1, h, w))
+    return tuple(torch.tensor(rng.uniform(*WEIGHTED_G, size=s), dtype=dtype,
+                              device="cuda") for s in shapes)
+
+
+def phase_weighted_solves(ws, gw, gw3, grid, rng) -> dict:
+    """Every run of ``WEIGHTED_RUNS`` through the user's entry point:
+    iterations, residual, launches and coarsest routes of one solve, host
+    ms (median of 5 after a warm-up), solves/s of the batched runs; three
+    batched samples against single solves; the g = 1 identity with the
+    uniform grid; the card against the CPU route; dR/dgx against central
+    differences.  Returns the wrappers' launches over all of it (counts
+    reset just before)."""
+    # The metal layer of BASELINE config 5's grid, one field for both
+    # dtypes of wgrid1024.
+    n = WEIGHTED_LAYER_N
+    layer = run_conductances(rng, (n, n), 1, torch.float64)
+    reset_weighted_counts(ws)
+    results = {}
+    for label, dims, B, dtype, tol in WEIGHTED_RUNS:
+        if label.startswith("wgrid1024"):
+            g = tuple(t.to(dtype) for t in layer)
+        else:
+            g = run_conductances(rng, dims, B, dtype)
+        probes = weighted_probes(dims, B > 1)
+        before = weighted_launch_counts(ws)
+        x, info = weighted_solve_info(gw, gw3, dims, g, tol, probes)
+        torch.cuda.synchronize()
+        one = {k: v - before[k] for k, v in weighted_launch_counts(ws).items()}
+        its = info.iterations.reshape(-1)
+        res = info.residual.reshape(-1)
+        check(bool(info.converged.all()) and bool(torch.isfinite(x).all()),
+              f"{label}: did not converge (iterations {int(its.max())}, "
+              f"residual {float(res.max()):.3e})")
+        solve = weighted_solver(gw, gw3, dims, g, tol, probes)
+        R, _ = solve()
+        times, ms = host_median_ms(solve)
+        R = R.reshape(-1)
+        check(bool(torch.isfinite(R).all()) and bool((R > 0).all()),
+              f"{label}: R {R[:4].tolist()}")
+        entry = {"phase": "weighted", "path": label, "dims": dims, "B": B,
+                 "dtype": str(dtype), "tol": tol,
+                 "probes": probes,
+                 "iterations": [int(its.min()), int(its.max())],
+                 "residual_max": float(res.max()),
+                 "R": float(R[0]) if B == 1 else [float(R.min()),
+                                                   float(R.max())],
+                 "launches_per_solve": one, "ms_reps": times,
+                 "median_ms": ms,
+                 "solves_per_s": B / (ms / 1e3)}
+        emit(entry)
+        results[label] = entry
+        if label == "wgrid1000_f32":
+            check(one["coarse_sweeps"] > 0 and one["coarse_block"] == 0,
+                  f"{label}: the 125² coarsest level took {one}")
+        if label in WEIGHTED_SINGLES:
+            worst = 0.0
+            for i in (0, B // 2, B - 1):
+                Ri, _ = weighted_solver(
+                    gw, gw3, dims, tuple(t[i] for t in g), tol, probes)()
+                worst = max(worst, abs(float(Ri) - float(R[i]))
+                            / abs(float(Ri)))
+            emit({"phase": "weighted_singles", "path": label,
+                  "samples": [0, B // 2, B - 1], "worst_rel": worst,
+                  "tol": WEIGHTED_BATCH_RTOL})
+            check(worst <= WEIGHTED_BATCH_RTOL,
+                  f"{label}: batched samples {worst:.3e} from single solves")
+        del x, info, g
+        torch.cuda.empty_cache()
+    r32 = results["wgrid1024_f32"]["R"]
+    r64 = results["wgrid1024_f64"]["R"]
+    check(abs(r32 - r64) <= 1e-4 * r64,
+          f"wgrid1024: R in f32 {r32!r} and f64 {r64!r} differ")
+
+    # g = 1: the uniform grid of unit resistors, solved by both paths.
+    a, b = weighted_probes((n, n))
+    ones = (torch.ones(n, n - 1, dtype=torch.float64, device="cuda"),
+            torch.ones(n - 1, n, dtype=torch.float64, device="cuda"))
+    Rw, _ = gw.weighted_equivalent_resistance(n, n, *ones, a, b, 1e-11,
+                                              device="cuda")
+    Ru, _ = grid.grid_equivalent_resistance(n, n, a, b, dtype=torch.float64,
+                                            tol=1e-11, device="cuda")
+    rel = abs(float(Rw) - float(Ru)) / abs(float(Ru))
+    emit({"phase": "weighted_identity", "n": n, "R_weighted": float(Rw),
+          "R_uniform": float(Ru), "rel": rel,
+          "tol": WEIGHTED_IDENTITY_RTOL})
+    check(rel <= WEIGHTED_IDENTITY_RTOL,
+          f"g = 1: weighted R {float(Rw)!r} vs uniform {float(Ru)!r}")
+
+    # The card against the port's CPU route, f64.
+    for dims in WEIGHTED_CPU_DIMS:
+        g = run_conductances(rng, dims, 1, torch.float64)
+        probes = weighted_probes(dims)
+        x, info = weighted_solve_info(gw, gw3, dims, g, 1e-10, probes)
+        R = float(weighted_solver(gw, gw3, dims, g, 1e-10, probes)()[0][0])
+        gc = tuple(t.cpu() for t in g)
+        pa, pb = probes
+        rhs = gw.probe_fields(dims, pa, pb, 1, torch.float64, "cpu")
+        if len(dims) == 2:
+            xc, ic = gw.weighted_grid_solve(*gc[:2], rhs, tol=1e-10,
+                                            device="cpu")
+            Rc = float(gw.weighted_equivalent_resistance(
+                *dims, *gc[:2], pa, pb, 1e-10, device="cpu")[0][0])
+        else:
+            xc, ic = gw3.weighted_lattice_solve(*gc, rhs, tol=1e-10,
+                                                device="cpu")
+            Rc = float(gw3.weighted_equivalent_resistance_3d(
+                *dims, *gc, pa, pb, 1e-10, device="cpu")[0][0])
+        x_rel = float((x.cpu() - xc).abs().max() / xc.abs().max())
+        r_rel = abs(R - Rc) / abs(Rc)
+        emit({"phase": "weighted_cpu_route", "dims": dims, "R": R,
+              "R_cpu": Rc, "R_rel": r_rel, "x_rel": x_rel,
+              "iterations": int(info.iterations[0]),
+              "iterations_cpu": int(ic.iterations[0]),
+              "tol": WEIGHTED_CPU_RTOL})
+        check(r_rel <= WEIGHTED_CPU_RTOL and x_rel <= WEIGHTED_CPU_RTOL,
+              f"{dims}: the card's R / x {r_rel:.3e} / {x_rel:.3e} from "
+              "the CPU route")
+
+    # dR/dgx at 1024² f64 against central differences.
+    gx, gy = layer[0][0], layer[1][0]
+    gxt = gx.clone().requires_grad_()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    R, _ = gw.weighted_equivalent_resistance(n, n, gxt, gy, a, b, 1e-12,
+                                             device="cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    R.backward()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    grads, fds = [], []
+    for e in WEIGHTED_FD_EDGES:
+        Rs = []
+        for sgn in (1, -1):
+            ge = gx.clone()
+            ge[e] += sgn * WEIGHTED_FD_STEP
+            Rs.append(float(gw.weighted_equivalent_resistance(
+                n, n, ge, gy, a, b, 1e-12, device="cuda")[0]))
+        grads.append(float(gxt.grad[e]))
+        fds.append((Rs[0] - Rs[1]) / (2 * WEIGHTED_FD_STEP))
+    scale = max(abs(v) for v in grads)
+    err = max(abs(p - q) for p, q in zip(grads, fds)) / scale
+    emit({"phase": "weighted_gradient", "n": n, "edges": WEIGHTED_FD_EDGES,
+          "dR_dgx": grads, "central_differences": fds, "rel": err,
+          "tol": WEIGHTED_FD_RTOL, "forward_ms": (t1 - t0) * 1e3,
+          "backward_ms": (t2 - t1) * 1e3})
+    check(err <= WEIGHTED_FD_RTOL,
+          f"dR/dgx {grads} vs central differences {fds}")
+    torch.cuda.empty_cache()
+    return weighted_launch_counts(ws)
+
+
+# What each weighted kernel replaces: no Pallas kernel, the XLA fusions
+# of these JAX functions.
+WEIGHTED_FUSES = (
+    ("weighted_residual",
+     "no TPU kernel; fuses nodal_tpu/ops/grid_weighted.py:34 "
+     "weighted_laplacian_matvec (+ :99-102 restrict), "
+     "nodal_tpu/ops/grid_weighted3.py:42"),
+    ("weighted_jacobi",
+     "no TPU kernel; fuses nodal_tpu/ops/grid_weighted.py:86 jacobi "
+     "(+ :104 prolong), nodal_tpu/ops/grid_weighted3.py:103"),
+    ("weighted_jacobi_block",
+     "no TPU kernel; fuses nodal_tpu/ops/grid_weighted.py:109-111 "
+     "coarsest sweeps, nodal_tpu/ops/grid_weighted3.py:131-133"),
+)
+WEIGHTED_KERNEL_NAMES = {"weighted_residual": ("residual_kernel",
+                                               "restrict_kernel"),
+                         "weighted_jacobi": ("jacobi_kernel",),
+                         "weighted_jacobi_block": ("jacobi_block_kernel",)}
+
+
+def phase_weighted_profile(ws, gw, rng) -> None:
+    """A ``torch.profiler`` trace of the wgrid1024 f32 solve: a lead-in and
+    two solves in spans; for each the weighted kernels by name against the
+    wrappers' launches (the trace is taken again, up to
+    ``GRID_PROFILE_TRIES`` times, until they agree), kernels and host syncs
+    a CG iteration, device ms, idle share and the top kernels by name."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    n = WEIGHTED_LAYER_N
+    g = run_conductances(rng, (n, n), 1, torch.float32)
+    solve = functools.partial(weighted_solve_info, gw, None, (n, n), g, 1e-6,
+                              weighted_probes((n, n)))
+    labels = ["wsolve_lead", "wsolve_0", "wsolve_1"]
+    for attempt in range(GRID_PROFILE_TRIES):
+        launches, its = {}, {}
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for label in labels:
+                reset_weighted_counts(ws)
+                with record_function(label):
+                    _, info = solve()
+                    torch.cuda.synchronize()
+                launches[label] = weighted_launch_counts(ws)
+                its[label] = int(info.iterations[0])
+        with tempfile.TemporaryDirectory() as tmp:
+            path = Path(tmp) / "trace.json"
+            prof.export_chrome_trace(str(path))
+            events = json.loads(path.read_text())["traceEvents"]
+        kernels, syncs = split_trace(events, labels[1:])
+        solves, whole = [], True
+        for label in labels[1:]:
+            ks = kernels[label]
+            names = {}
+            for e in ks:
+                k = kernel_name(e["name"])
+                names[k] = names.get(k, 0) + 1
+            traced = {w: sum(names.get(k, 0) for k in keys)
+                      for w, keys in WEIGHTED_KERNEL_NAMES.items()}
+            want = {w: launches[label][w] for w in WEIGHTED_KERNEL_NAMES}
+            if not ks or traced != want:
+                whole = False
+                emit({"phase": "weighted_profile", "trace_not_whole": label,
+                      "traced": traced, "launched": want})
+                break
+            busy = sum(e["dur"] for e in ks) / 1e3
+            window = (max(e["ts"] + e["dur"] for e in ks)
+                      - min(e["ts"] for e in ks)) / 1e3
+            by_name = {}
+            for e in ks:
+                k = kernel_name(e["name"])
+                by_name[k] = by_name.get(k, 0.0) + e["dur"] / 1e3
+            solves.append({"iterations": its[label], "kernels": len(ks),
+                           "kernels_per_iteration": len(ks) / its[label],
+                           "host_syncs": syncs[label],
+                           "host_syncs_per_iteration":
+                               syncs[label] / its[label],
+                           "device_ms": busy, "window_ms": window,
+                           "idle_share": max(0.0, 1.0 - busy / window),
+                           "top_kernels_ms": dict(sorted(
+                               by_name.items(), key=lambda kv: -kv[1])[:8]),
+                           "launches": launches[label]})
+        if whole:
+            emit({"phase": "weighted_profile", "path": "wgrid1024_f32",
+                  "traces_not_whole": attempt, "solves": solves})
+            return
+    fail(f"weighted profile: no whole trace in {GRID_PROFILE_TRIES} tries")
+
+
+def phase_weighted(grid):
+    """The weighted grids and lattices on the card: the three kernels
+    against their plain versions and timed, the solves of
+    ``WEIGHTED_RUNS`` with their checks, then a profile.  Returns the
+    wrappers' launches on the solves and the kernels' timings."""
+    from nodal_tpu_torch.ops import grid_weighted as gw
+    from nodal_tpu_torch.ops import grid_weighted3 as gw3
+    from nodal_tpu_torch.ops import weighted_stencil as ws
+
+    rng = np.random.default_rng(0)
+    timing = phase_weighted_kernels(ws, rng)
+    launches = phase_weighted_solves(ws, gw, gw3, grid, rng)
+    emit({"phase": "weighted_launches", **launches})
+    check(all(launches[k] > 0 for k in WEIGHTED_KERNEL_NAMES),
+          f"a weighted kernel never launched on the solves: {launches}")
+    phase_weighted_profile(ws, gw, rng)
+    return launches, timing
+
+
 def kernel_entry(name, source, replaces, launches, t) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -3389,6 +3972,8 @@ def main() -> None:
     clock("sensitivities")
     emit({"phase": "analysis_launches", "monte_carlo": mc_launches,
           "sensitivities": sens_launches})
+    w_launches, w_timing = phase_weighted(grid)
+    clock("weighted")
     for counts in (mc_launches, sens_launches):
         launches += counts.get("pcr_solve", 0)
         sb_launches += counts.get("sband_solve_multi", 0)
@@ -3438,6 +4023,10 @@ def main() -> None:
                        fc_timing[(name, (1, 1024, 1024), torch.float32)])
           for name, line in (("stencil_partials", 47),
                              ("update_partials", 94))),
+        *(kernel_entry(name, "nodal_tpu_torch/csrc/weighted_stencil.cu",
+                       fuses, w_launches[name],
+                       w_timing[(name, torch.float32)])
+          for name, fuses in WEIGHTED_FUSES),
     ]})
     check("jax" not in sys.modules, "jax was imported")
     emit({"ok": True, "device": {"platform": "gpu",

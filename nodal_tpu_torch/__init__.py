@@ -21,9 +21,10 @@ multigrid stencil kernels; and the sparse backend (``Circuit(sparse=True)``,
 ``-s``: Jacobi- and AMG-CG, the host skyline LDLᵀ, the native parser,
 multi-probe equivalent resistance, and for circuits with branch rows the
 ideal-source reduction and the bordered elimination with its transpose
-and adjoint).  The weighted grids and the multi-device paths are not
-ported yet.  Entry points run on the card
-(``device="cuda"``) unless given ``device="cpu"``.
+and adjoint); and the weighted grids and lattices (per-edge
+conductances, batched and differentiable MG-CG on the weighted-stencil
+kernels).  The multi-device paths are not ported yet.  Entry points run
+on the card (``device="cuda"``) unless given ``device="cpu"``.
 
     from nodal_tpu_torch import Circuit, Netlist, monte_carlo
     print(Circuit(Netlist("examples/1.6.1.csv")).solve())
@@ -36,6 +37,14 @@ ported yet.  Entry points run on the card
     from nodal_tpu_torch import grid_equivalent_resistance
     R, info = grid_equivalent_resistance(1024, 1024, (512, 512), (513, 514),
                                          tol=1e-6)   # 1M nodes, on the card
+
+    import numpy as np
+    from nodal_tpu_torch import weighted_equivalent_resistance
+    rng = np.random.default_rng(0)     # 1024 fabrics of 64×64, one batch
+    gx = rng.uniform(0.5, 2.0, (1024, 64, 63)).astype(np.float32)
+    gy = rng.uniform(0.5, 2.0, (1024, 63, 64)).astype(np.float32)
+    R, residual = weighted_equivalent_resistance(64, 64, gx, gy, (0, 0),
+                                                 (63, 63), tol=1e-6)
 """
 
 __version__ = "0.1.0"
@@ -61,4 +70,12 @@ from nodal_tpu_torch.ops.grid import (  # noqa: F401
     grid_equivalent_resistance,
     grid_equivalent_resistance_many,
     grid_solve,
+)
+from nodal_tpu_torch.ops.grid_weighted import (  # noqa: F401
+    weighted_equivalent_resistance,
+    weighted_grid_solve,
+)
+from nodal_tpu_torch.ops.grid_weighted3 import (  # noqa: F401
+    weighted_equivalent_resistance_3d,
+    weighted_lattice_solve,
 )

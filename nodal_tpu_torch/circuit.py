@@ -167,7 +167,8 @@ class Circuit:
 
         The band route runs the block-Thomas solve at B = 1 (the CUDA
         kernel on the card, the plain pivoted version on the CPU); the
-        dense route the library's pivoted LU.  The residual is the
+        dense route the library's pivoted LU on the card and scipy's LAPACK
+        on the CPU (:func:`_solve_dense`).  The residual is the
         assembled system's, in the solve's dtype; products run without
         TF32 (PyTorch's default).
         """
@@ -179,7 +180,7 @@ class Circuit:
             return plan.unpermute(x)[0], residual, "band_thomas"
         G, b = assemble_dense(self.stamps, params)
         try:
-            x = dense_solve.solve_dense(G, b)
+            x = _solve_dense(G, b)
         except torch.linalg.LinAlgError:  # an exactly singular factor
             return torch.full_like(b[0], torch.nan), np.inf, "dense_lu"
         return x[0], _rel_residual(G, b, x), "dense_lu"
@@ -215,7 +216,7 @@ class Circuit:
                                  device=dev)[None]
         G, b = assemble_dense(self.stamps, params)
         try:
-            x = dense_solve.solve_dense(G, b)
+            x = _solve_dense(G, b)
         except torch.linalg.LinAlgError:
             return np.full(n, np.nan), np.inf
         return x[0].cpu().numpy(), _rel_residual(G, b, x)
@@ -256,6 +257,15 @@ class Circuit:
         params = torch.as_tensor(self.stamps.params, dtype=torch.float64)
         G, b = assemble_dense(self.stamps, params[None])
         return G[0].numpy(), b[0].numpy()
+
+
+def _solve_dense(G: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The dense route's pivoted LU: on the CPU scipy's LAPACK, for the JAX
+    package's bytes (:func:`~nodal_tpu_torch.ops.dense_solve.
+    solve_dense_host`); on the card the library's."""
+    if G.device.type == "cpu":
+        return dense_solve.solve_dense_host(G, b)
+    return dense_solve.solve_dense(G, b)
 
 
 def _max_rel(r: torch.Tensor, b: torch.Tensor) -> float:

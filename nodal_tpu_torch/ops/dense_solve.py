@@ -3,17 +3,30 @@
 Counterpart of ``nodal_tpu/ops/dense_solve.py``.  :func:`solve_dense`
 serves the ``dense`` tier (``batch.make_dense_core``), the pivoted f64
 rescue of the contract layer (``batch._escalating_solver``) and
-``Circuit.solve``'s dense route and rescue.  As in the JAX package, the LU
-runs outside any kernel of this repository: it is the library's.
+``Circuit.solve``'s dense route and rescue on the card;
+:func:`solve_dense_host` serves ``Circuit.solve``'s dense route and rescue
+for CPU tensors.  As in the JAX package, the LU runs outside any kernel of
+this repository: it is the library's.
+
+Every solve runs in its own dtype on the device where its matrix lives:
+on the card through ``torch.linalg.solve``, and for ``Circuit``'s CPU
+tensors through scipy's LAPACK and BLAS (``getrf``, ``trsm``), which jaxlib
+calls on the CPU.  So a single solve on the CPU prints
+the JAX package's bytes; ``torch.linalg.solve`` on the CPU (MKL) differs
+from them in the last digits.  The batched ``dense`` tier keeps
+``torch.linalg.solve`` on either device.
 
 The JAX package's TPU branches (``solve_on_cpu``, and ``solve_auto``'s
 f32-LU-plus-refinement for f64 on a TPU, whose compiler has no f64 LU) are
-not carried over: the card has an f64 LU, so every solve runs in its own
-dtype on the device where its matrix lives.
+not carried over: the card has an f64 LU.
 """
 
 from __future__ import annotations
 
+import warnings
+
+import numpy as np
+import scipy.linalg
 import torch
 
 #: Refinement passes of :func:`solve_refined`: each gains about seven
@@ -26,6 +39,30 @@ def solve_dense(G: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Pivoted LU solve ``G x = b`` in the dtype of ``G``, batched over the
     leading dimensions."""
     return torch.linalg.solve(G, b)
+
+
+def solve_dense_host(G: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Pivoted LU solve ``G x = b`` of CPU tensors ``G`` [B, n, n], ``b``
+    [B, n] through scipy's LAPACK and BLAS, in the dtype of ``G``: bit for
+    bit what ``jnp.linalg.solve`` gives on the CPU, whose steps these are
+    (``getrf``, the row permutation, then two ``trsm``; ``getrs`` or
+    ``trsv`` in their place differ from it in the last digits).  As there,
+    an exactly singular factor gives non-finite values, not an error."""
+    out = torch.empty_like(b)
+    for k in range(G.shape[0]):
+        with warnings.catch_warnings():  # the singular factor's warning
+            warnings.simplefilter("ignore", scipy.linalg.LinAlgWarning)
+            lu, piv = scipy.linalg.lu_factor(G[k].numpy(), check_finite=False)
+        perm = np.arange(len(piv))
+        for i, p in enumerate(piv):
+            perm[i], perm[p] = perm[p], perm[i]
+        trsm = scipy.linalg.get_blas_funcs("trsm", (lu,))
+        x = b[k].numpy()[perm][:, None]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            x = trsm(1.0, lu, x, lower=1, diag=1)
+            x = trsm(1.0, lu, x, lower=0, diag=0)
+        out[k] = torch.from_numpy(x[:, 0])
+    return out
 
 
 def solve_refined(G: torch.Tensor, b: torch.Tensor,

@@ -86,6 +86,13 @@ _SIGNATURES = {
        for name in ("cg_stencil_partials_f32", "cg_stencil_partials_f64")},
     **{name: ([_P] * 9 + [_I] * 3 + [_P], _I)
        for name in ("cg_update_partials_f32", "cg_update_partials_f64")},
+    **{name: ([_P] * 7 + [_I] * 5 + [_P], _I)
+       for name in ("wstencil_residual_f32", "wstencil_residual_f64")},
+    **{name: ([_P] * 7 + [_I] * 4 + [_D, _P], _I)
+       for name in ("wstencil_jacobi_f32", "wstencil_jacobi_f64")},
+    **{name: ([_P] * 5 + [_I] * 6 + [_D, _P], _I)
+       for name in ("wstencil_jacobi_block_f32",
+                    "wstencil_jacobi_block_f64")},
 }
 
 

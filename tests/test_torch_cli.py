@@ -3,12 +3,27 @@
 package's (``nodal_tpu/solver_cli.py``, ``nodal_tpu/equiv_cli.py``) on the
 cases of ``tests/test_cli.py``: the printed lines (labels, order, tabs and
 the ground line byte for byte; values within 1e-12 of the largest printed
-value), the exit codes and the messages.  ``-s`` and ``--native on`` on
-resistive netlists print what the JAX package prints byte for byte (both
-take the skyline LDLᵀ on the CPU); ``solver_cli -s`` on a circuit with
-branch rows prints what the JAX package prints byte for byte (both run
-the ideal-source reduction and the bordered elimination on the skyline).
+value), the exit codes and the messages.
+
+Which routes hold bytes, and which a bound:
+
+* the default route's dense LU prints the JAX package's bytes: on the CPU
+  both solve through the same LAPACK and BLAS (``getrf``, ``trsm``; the
+  port's ``ops/dense_solve.py:solve_dense_host``), so every
+  ``examples/*.csv`` prints the same bytes and exit code;
+* the default route's band solve (``band_thomas``, meshes of two block
+  rows or more) does not: the JAX route's products run through XLA's own
+  CPU GEMMs.  A deliberate divergence, held to the same route, the same
+  lines and values within 1e-13 of the largest (8.7e-14 measured on the
+  40×40 mesh);
+* ``-s`` and ``--native on`` on resistive netlists print what the JAX
+  package prints byte for byte (both take the skyline LDLᵀ on the CPU);
+  ``solver_cli -s`` on a circuit with branch rows prints what the JAX
+  package prints byte for byte (both run the ideal-source reduction and
+  the bordered elimination on the skyline).
 """
+
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -18,6 +33,7 @@ torch = pytest.importorskip("torch")
 from nodal_tpu import equiv_cli as jequiv_cli  # noqa: E402
 from nodal_tpu import solver_cli as jsolver_cli  # noqa: E402
 from nodal_tpu_torch import equiv_cli, solver_cli  # noqa: E402
+from nodal_tpu_torch.utils.gridgen import grid_rows  # noqa: E402
 
 import fixtures as fx  # noqa: E402
 
@@ -72,6 +88,45 @@ def test_solver_cli_matches_jax(tmp_netlist, capsys, text):
     jout, _, jcode = _run(capsys, jsolver_cli.main, [path])
     assert code == jcode == 0
     _assert_same_lines(out, jout)
+
+
+EXAMPLES = sorted((Path(__file__).resolve().parent.parent / "examples")
+                  .glob("*.csv"))
+
+
+@pytest.mark.parametrize("path", EXAMPLES, ids=[p.stem for p in EXAMPLES])
+def test_solver_cli_examples_bytes(capsys, path):
+    """The default route on every example netlist prints the JAX package's
+    bytes and exits with its code (the dense LU through scipy's LAPACK)."""
+    out, _, code = _run(capsys, solver_cli.main, [str(path), "--device",
+                                                  "cpu"])
+    jout, _, jcode = _run(capsys, jsolver_cli.main, [str(path)])
+    assert code == jcode
+    assert out == jout
+
+
+def test_solver_cli_band_route_within_bound(tmp_netlist, capsys):
+    """A 40×40 mesh with a 1 A source takes the band route in both
+    packages: the same lines, values within 1e-13 of the largest (the
+    deliberate divergence of the module docstring)."""
+    rows = list(grid_rows(40, 40)) + [["src", "A", "1", "n0_0", "n39_39"],
+                                      ["rg", "R", "1", "n20_20", "g"]]
+    path = tmp_netlist("\n".join(",".join(r) for r in rows) + "\n")
+    out, err, code = _run(capsys, solver_cli.main,
+                          [path, "--device", "cpu", "--stats"])
+    jout, jerr, jcode = _run(capsys, jsolver_cli.main, [path, "--stats"])
+    assert code == jcode == 0
+    assert "method: band_thomas" in err and "method: band_thomas" in jerr
+    pl, rl = out.splitlines(), jout.splitlines()
+    assert len(pl) == len(rl) == 1601
+    vals = [float(ln.split(" \t= ")[1]) for ln in rl[1:]]
+    scale = max(abs(v) for v in vals)
+    assert pl[0] == rl[0]
+    for p, r in zip(pl[1:], rl[1:]):
+        kp, vp = p.split(" \t= ")
+        kr, vr = r.split(" \t= ")
+        assert kp == kr
+        assert abs(float(vp) - float(vr)) <= 1e-13 * scale, (p, r)
 
 
 def test_solver_cli_divider_bytes(tmp_netlist, capsys):
