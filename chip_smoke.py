@@ -105,6 +105,18 @@ single solves; the g = 1 grid against ``grid_equivalent_resistance``, the
 card against the CPU route at 256² and 16×32×32 in f64, dR/dgx at 1024²
 against central differences, and a profile of the 1024² f32 solve.
 
+Then the multi-device slice (``phase_parallel``) on a one-rank NCCL job
+(``multihost.initialize`` over TCP on this host, ``global_mesh()``): the
+ladder, mesh and branch sweeps at B = 16384 and the lattice and random
+network at B = 1024 through ``make_sharded_batch_solver``, each block
+against the unsharded tier on the same rows (bits) with the tier's
+kernel launched, both timed; ``refine=True`` on the mesh; ``backward()``
+through the sharded ladder and mesh; the 1024² grid's knight's-move
+probes (f32, f64) through ``make_sharded_grid_solver`` (``grid_solve``'s
+bits) and ``make_halo_grid_solver`` (its NCCL all-reduces and
+all-gathers, no more CG iterations than ``grid_solve``, R within 5e-3 of
+0.7732), the plain halo CG at 64²; then ``dryrun_multichip(1)``.
+
 Each kernel is also timed against its plain version, against one PyTorch
 call that computes the same function (``torch.linalg.solve`` on the dense
 systems) and against its bound on the card; the blocked LU's and the block
@@ -3837,6 +3849,258 @@ def phase_weighted(grid):
     return launches, timing
 
 
+# The sharded batch paths: the sweep paths' circuits at their
+# batches through make_sharded_batch_solver on a one-rank NCCL mesh.
+PARALLEL_PATHS = (("ladder", "tridiag", ("pcr_solve",)),
+                  ("mesh", "sband", ("sband_solve_multi",)),
+                  ("branch", "schur", ("sband_solve_multi",)),
+                  ("lattice", "band", ("band_solve_multi",)),
+                  ("randnet", "block", ("lu_factor", "lu_solve_factored")))
+PARALLEL_GRAD_PATHS = ("ladder", "mesh")
+PARALLEL_REFINE_BATCH = GENERAL_BATCH   # the dense core's [B, n, n] in f32
+PARALLEL_BITS_TOL = 1e-6    # of max|x|, if a sharded block differs in bits
+PARALLEL_GRID_N = 1024      # BASELINE config 5
+PARALLEL_GRID_RUNS = ((torch.float32, 1e-6), (torch.float64, 1e-10))
+PARALLEL_HALO_RTOL = {torch.float32: 1e-4, torch.float64: 1e-6}
+PARALLEL_PLAIN_CG_N = 64    # mg=False only here: 20·n iterations at most
+PARALLEL_COLLECTIVES = ("all_reduce", "all_gather_into_tensor",
+                        "batch_isend_irecv")
+
+
+def parallel_rows(label: str):
+    """The rows of a sweep path of ``PARALLEL_PATHS``."""
+    from nodal_tpu_torch.utils.gridgen import ladder_rows
+
+    if label == "ladder":
+        return ladder_rows(LADDER_RUNGS)
+    if label in ("mesh", "branch"):
+        return mesh_rows(MESH_NODES, branch=label == "branch")
+    if label == "lattice":
+        return lattice_rows(20, 10, 10)
+    return randnet_rows()
+
+
+@contextlib.contextmanager
+def counted_collectives():
+    """Counts of each ``torch.distributed`` collective called inside the
+    block (the halo solver and the CG look them up at call time)."""
+    import torch.distributed as dist
+
+    counts = dict.fromkeys(PARALLEL_COLLECTIVES, 0)
+    saved = {name: getattr(dist, name) for name in PARALLEL_COLLECTIVES}
+
+    def wrap(name):
+        def call(*args, **kwargs):
+            counts[name] += 1
+            return saved[name](*args, **kwargs)
+        return call
+
+    for name in PARALLEL_COLLECTIVES:
+        setattr(dist, name, wrap(name))
+    try:
+        yield counts
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
+
+
+def parallel_batch(mesh, label, tier, names, total) -> None:
+    """One sharded sweep path at its batch: the wrappers' launches over
+    exactly the sharded call (added to ``total``), its block against the
+    unsharded tier on the same rows, both timed by CUDA events."""
+    from nodal_tpu_torch import BatchedSolver, Circuit, Netlist
+    from nodal_tpu_torch.parallel.sharded import make_sharded_batch_solver
+
+    circuit = Circuit(Netlist.from_rows(parallel_rows(label)))
+    batch = BATCH if label in ("ladder", "mesh", "branch") else GENERAL_BATCH
+    params = torch.as_tensor(sweep_params(circuit, batch), device="cuda")
+    sharded = make_sharded_batch_solver(circuit.stamps, mesh)
+    check(sharded.tier == tier, f"sharded {label}: tier {sharded.tier}")
+    xs, launches = counted(lambda: sharded(params))
+    check(all(launches[k] > 0 for k in names),
+          f"sharded {label}: a kernel of {names} never launched: {launches}")
+    add_launches(total, launches)
+    local = BatchedSolver(circuit, dtype=torch.float32, refine=False,
+                          method=tier, device="cuda")
+    ref = local(params)
+    bits = torch.equal(xs, ref)
+    diff = float((xs - ref).abs().max() / ref.abs().max())
+    times, ms = median_call_ms(sharded, params)
+    ref_times, ref_ms = median_call_ms(local, params)
+    emit({"phase": "parallel_batch", "path": label, "tier": tier,
+          "B": batch, "n": circuit.stamps.n, "launches": launches,
+          "bits_equal_unsharded": bits, "max_rel_diff": diff,
+          "ms_reps": times, "median_ms": ms,
+          "solves_per_s": batch / (ms / 1e3), "unsharded_ms_reps": ref_times,
+          "unsharded_median_ms": ref_ms,
+          "unsharded_solves_per_s": batch / (ref_ms / 1e3)})
+    check(bits or diff <= PARALLEL_BITS_TOL,
+          f"sharded {label}: {diff:.3e} from the unsharded tier")
+    if label == "mesh":
+        parallel_refine(mesh, circuit, params[:PARALLEL_REFINE_BATCH])
+    if label in PARALLEL_GRAD_PATHS:
+        w = torch.as_tensor(np.random.default_rng(7).standard_normal(
+            (batch, circuit.stamps.n)).astype(np.float32), device="cuda")
+        grads = []
+        for solve in (sharded, local):
+            p = params.clone().requires_grad_()
+            x = solve(p)
+            _, back = counted(lambda: (w * x).sum().backward())
+            grads.append(p.grad)
+            if solve is sharded:
+                check(all(back[k] > 0 for k in names),
+                      f"sharded {label}: no backward launch: {back}")
+                add_launches(total, back)
+        gdiff = float((grads[0] - grads[1]).abs().max()
+                      / grads[1].abs().max())
+        emit({"phase": "parallel_gradient", "path": label, "B": batch,
+              "backward_launches": back,
+              "bits_equal_unsharded": torch.equal(*grads),
+              "max_rel_diff": gdiff})
+        check(gdiff <= PARALLEL_BITS_TOL,
+              f"sharded {label}: gradient {gdiff:.3e} from the unsharded")
+    del xs, ref
+    torch.cuda.empty_cache()
+
+
+def parallel_refine(mesh, circuit, params) -> None:
+    """``refine=True`` (the dense core, f64 out) on the mesh against the
+    sband tier's raw f64 solve."""
+    from nodal_tpu_torch import BatchedSolver
+    from nodal_tpu_torch.parallel.sharded import make_sharded_batch_solver
+
+    sharded = make_sharded_batch_solver(circuit.stamps, mesh, refine=True)
+    xs, launches = counted(lambda: sharded(params))
+    x64 = BatchedSolver(circuit, dtype=torch.float64, refine=False,
+                        method="sband", device="cuda")(params)
+    err = float(rel_errors(xs, x64).max())
+    times, ms = median_call_ms(sharded, params)
+    emit({"phase": "parallel_refine", "path": "mesh", "tier": sharded.tier,
+          "B": len(params), "dtype": str(xs.dtype), "launches": launches,
+          "max_rel_err_vs_f64": err, "median_ms": ms,
+          "solves_per_s": len(params) / (ms / 1e3)})
+    check(sharded.tier == "dense" and xs.dtype == torch.float64,
+          f"refine=True: tier {sharded.tier}, {xs.dtype}")
+    check(err <= CONTRACT_TOL, f"refine=True: {err:.3e} from f64")
+    del xs, x64
+    torch.cuda.empty_cache()
+
+
+def parallel_grids(grid, st, mesh, total) -> None:
+    """BASELINE config 5's grid by the sharded and the halo solvers on the
+    knight's-move probe fields (B = 2), against ``grid_solve`` on the card;
+    the plain halo CG at 64²; each solver's host ms, iterations and
+    collectives an iteration.  The stencil wrappers' launches on the
+    sharded and halo solves are added to ``total``."""
+    from nodal_tpu_torch.parallel.halo import make_halo_grid_solver
+    from nodal_tpu_torch.parallel.sharded import make_sharded_grid_solver
+
+    def run(solve):
+        reset_grid_counts(st)
+        with counted_collectives() as coll:
+            out = solve()
+            torch.cuda.synchronize()
+        counts = grid_launch_counts(st)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        return out, counts, dict(coll)
+
+    for n, runs, mg in ((PARALLEL_GRID_N, PARALLEL_GRID_RUNS, True),
+                        (PARALLEL_PLAIN_CG_N, ((torch.float64, 1e-10),),
+                         False)):
+        pairs = probe_pairs(n)[:2] if mg else np.array(
+            [knight_probes(n), ((0, 0), (n - 1, n - 1))])
+        for dtype, tol in runs:
+            label = f"grid{n}_{'f32' if dtype == torch.float32 else 'f64'}"
+            rhs, idx, pa, pb = grid._probe_fields(n, n, pairs, dtype, "cuda")
+            kw = {"dtype": dtype, "tol": tol, "mg": mg, "device": "cuda"}
+            ref = functools.partial(grid.grid_solve, n, n, rhs, **kw)
+            x_ref, info = ref()
+            sharded = make_sharded_grid_solver(n, n, mesh, **kw)
+            (x_sh, res_sh), sh_counts, sh_coll = run(lambda: sharded(rhs))
+            bits = torch.equal(x_sh, x_ref) and torch.equal(
+                res_sh, info.residual)
+            check(bits, f"sharded {label}: not grid_solve's bits")
+            if mg:
+                check(all(sh_counts[k] > 0 for k in (
+                    "presmooth_restrict", "prolong_postsmooth", "vcycle")),
+                    f"sharded {label}: stencil launches {sh_counts}")
+            halo = make_halo_grid_solver(n, n, mesh, **kw)
+            (x_h, res_h, its_h), h_counts, h_coll = run(lambda: halo(rhs))
+            err = float((x_h - x_ref).abs().max() / x_ref.abs().max())
+            its, its_ref = int(its_h.max()), int(info.iterations.max())
+            flat = x_h.reshape(len(pairs), n * n)
+            R = (flat[idx, pa] - flat[idx, pb]).abs().tolist()
+            if mg:
+                check(h_counts["vcycle"] > 0,
+                      f"halo {label}: the gathered level's cycle never ran")
+            check(err <= PARALLEL_HALO_RTOL[dtype],
+                  f"halo {label}: {err:.3e} of max|x| from grid_solve")
+            check(not mg or bool((its_h <= info.iterations).all()),
+                  f"halo {label}: {its_h.tolist()} CG iterations, grid_solve"
+                  f" {info.iterations.tolist()}")
+            check(bool((res_h <= tol).all()), f"halo {label}: residual "
+                  f"{float(res_h.max()):.3e}")
+            check(not mg or all(abs(r - 0.7732) < 5e-3 for r in R),
+                  f"halo {label}: R = {R}")
+            t_sh, ms_sh = host_median_ms(lambda: sharded(rhs))
+            t_h, ms_h = host_median_ms(lambda: halo(rhs))
+            t_ref, ms_ref = host_median_ms(ref)
+            emit({"phase": "parallel_grid", "path": label, "mg": mg,
+                  "B": len(pairs), "tol": tol, "R": R,
+                  "sharded_bits_equal_grid_solve": bits,
+                  "sharded_launches": sh_counts,
+                  "sharded_collectives": sh_coll,
+                  "halo_launches": h_counts, "halo_collectives": h_coll,
+                  "halo_collectives_per_iteration": {
+                      k: v / its for k, v in h_coll.items()},
+                  "halo_iterations": its_h.tolist(),
+                  "grid_solve_iterations": info.iterations.tolist(),
+                  "halo_max_rel_diff": err,
+                  "halo_max_residual": float(res_h.max()),
+                  "sharded_ms_reps": t_sh, "sharded_median_ms": ms_sh,
+                  "halo_ms_reps": t_h, "halo_median_ms": ms_h,
+                  "halo_ms_per_iteration": ms_h / its,
+                  "grid_solve_median_ms": ms_ref})
+            del rhs, x_ref, x_sh, x_h
+            torch.cuda.empty_cache()
+
+
+def phase_parallel(grid, st):
+    """The multi-device slice on a one-rank NCCL job: the sharded sweep
+    paths (``PARALLEL_PATHS``) against their unsharded tiers, the
+    gradients and ``refine=True``, the sharded and halo grid solvers, then
+    ``dryrun_multichip(1)``.  Returns the batch wrappers' and the stencil
+    wrappers' launches on the sharded paths."""
+    import socket
+
+    import torch.distributed as dist
+    from nodal_tpu_torch.parallel import dryrun, multihost
+
+    t0 = time.perf_counter()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    multihost.initialize(f"127.0.0.1:{port}", 1, 0)
+    try:
+        mesh = multihost.global_mesh()
+        check(dist.get_backend() == "nccl" and tuple(mesh.shape) == (1, 1),
+              f"{dist.get_backend()} mesh {tuple(mesh.shape)}")
+        batch, stencil_total = {}, {}
+        for label, tier, names in PARALLEL_PATHS:
+            parallel_batch(mesh, label, tier, names, batch)
+        parallel_grids(grid, st, mesh, stencil_total)
+        summary = dryrun.dryrun_multichip(1, device="cuda")
+        emit({"phase": "parallel_dryrun", **summary})
+    finally:
+        dist.destroy_process_group()
+    check("jax" not in sys.modules, "jax was imported")
+    emit({"phase": "parallel_launches", "batch": batch,
+          "stencil": stencil_total,
+          "seconds": time.perf_counter() - t0})
+    return batch, stencil_total
+
+
 def kernel_entry(name, source, replaces, launches, t) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -3974,6 +4238,15 @@ def main() -> None:
           "sensitivities": sens_launches})
     w_launches, w_timing = phase_weighted(grid)
     clock("weighted")
+    p_batch, p_stencil = phase_parallel(grid, stencil)
+    clock("parallel")
+    launches += p_batch.get("pcr_solve", 0)
+    sb_launches += p_batch.get("sband_solve_multi", 0)
+    bt_launches += p_batch.get("band_solve_multi", 0)
+    lu_launches += (p_batch.get("lu_factor", 0)
+                    + p_batch.get("lu_solve_factored", 0))
+    for k, v in p_stencil.items():
+        st_launches[k] += v
     for counts in (mc_launches, sens_launches):
         launches += counts.get("pcr_solve", 0)
         sb_launches += counts.get("sband_solve_multi", 0)

@@ -23,8 +23,11 @@ multi-probe equivalent resistance, and for circuits with branch rows the
 ideal-source reduction and the bordered elimination with its transpose
 and adjoint); and the weighted grids and lattices (per-edge
 conductances, batched and differentiable MG-CG on the weighted-stencil
-kernels).  The multi-device paths are not ported yet.  Entry points run
-on the card (``device="cuda"``) unless given ``device="cpu"``.
+kernels); and the multi-device paths (``nodal_tpu_torch.parallel``: meshes
+and the multi-host set-up on ``torch.distributed``, NCCL on the card and
+Gloo on the CPU, the sharded batch sweep over the kernel tiers, the
+sharded and halo-exchange grid MG-CG).  Entry points run on the card
+(``device="cuda"``) unless given ``device="cpu"``.
 
     from nodal_tpu_torch import Circuit, Netlist, monte_carlo
     print(Circuit(Netlist("examples/1.6.1.csv")).solve())

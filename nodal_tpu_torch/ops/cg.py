@@ -9,15 +9,21 @@ unconverged and under ``maxiter``, and a sample that has stopped is frozen
 are those of its own single solve.  Each loop syncs the host once an
 iteration, for its continuation test.
 
-Not yet ported: the collectives of the JAX ``cg`` (``axis_names``,
-``cond_axis_names``).
+``cg(group=...)`` is the JAX ``cg``'s ``axis_names``: each sample's field
+is a block of a field split over the ranks of a ``torch.distributed``
+process group, and every dot product is all-reduced over that group, so
+the continuation test agrees on every rank of it.  ``cond_axis_names`` has
+no counterpart: each group runs its own loop, and no collective crosses
+groups inside it.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 
 class SolveInfo(NamedTuple):
@@ -35,6 +41,13 @@ def _dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return (u * v).flatten(1).sum(dim=1)
 
 
+def _group_dot(u: torch.Tensor, v: torch.Tensor, group) -> torch.Tensor:
+    """:func:`_dot` of the blocks, summed over the ranks of ``group``."""
+    d = _dot(u, v)
+    dist.all_reduce(d, group=group)
+    return d
+
+
 def _safe_div(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
     return num / torch.where(den == 0, torch.ones_like(den), den)
 
@@ -46,14 +59,22 @@ def _per_sample(s: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 def cg(matvec: Callable, b: torch.Tensor, x0: torch.Tensor | None = None, *,
        preconditioner: Callable | None = None, tol: float = 1e-9,
-       maxiter: int | None = None):
+       maxiter: int | None = None, group=None):
     """Preconditioned CG for SPD operators, batched over ``b`` [B, ...].
 
     ``matvec`` and ``preconditioner`` map a [B, ...] batch to a [B, ...]
     batch, each sample independently.  Convergence: ||r|| <= tol * ||b||
     per sample, capped at ``maxiter``.  Returns ``(x, SolveInfo)`` with
     SolveInfo fields of shape [B].
+
+    ``group``: a process group over whose ranks ``b`` and the iterates are
+    split (each rank holds its block of every sample, and ``matvec`` and
+    ``preconditioner`` exchange what they need); every dot product is then
+    all-reduced over it (SUM).  Every rank of the group must call with the
+    same batch and ``maxiter``.
     """
+    dot = _dot if group is None else functools.partial(_group_dot,
+                                                        group=group)
     M = preconditioner or _identity
     if x0 is None:
         x0 = torch.zeros_like(b)
@@ -61,14 +82,14 @@ def cg(matvec: Callable, b: torch.Tensor, x0: torch.Tensor | None = None, *,
         maxiter = 10 * b[0].numel()
     tiny = torch.finfo(b.dtype).tiny
 
-    b_norm2 = _dot(b, b)
+    b_norm2 = dot(b, b)
     atol2 = (tol * tol) * torch.clamp(b_norm2, min=tiny)
 
     x = x0
     r = b - matvec(x0)
     p = M(r)
-    rz = _dot(r, p)
-    rr = _dot(r, r)
+    rz = dot(r, p)
+    rr = dot(r, r)
     k = torch.zeros(b.shape[0], dtype=torch.int32, device=b.device)
     while True:
         active = (rr > atol2) & (k < maxiter)
@@ -77,11 +98,11 @@ def cg(matvec: Callable, b: torch.Tensor, x0: torch.Tensor | None = None, *,
         if n_active == 0:
             break
         Ap = matvec(p)
-        alpha = _per_sample(_safe_div(rz, _dot(p, Ap)), p)
+        alpha = _per_sample(_safe_div(rz, dot(p, Ap)), p)
         x_new = x + alpha * p
         r_new = r - alpha * Ap
         z_new = M(r_new)
-        rz_new = _dot(r_new, z_new)
+        rz_new = dot(r_new, z_new)
         p_new = z_new + _per_sample(_safe_div(rz_new, rz), p) * p
         if n_active == b.shape[0]:
             x, r, p, rz = x_new, r_new, p_new, rz_new
@@ -94,7 +115,7 @@ def cg(matvec: Callable, b: torch.Tensor, x0: torch.Tensor | None = None, *,
             p = torch.where(keep, p_new, p)
             rz = torch.where(active, rz_new, rz)
             k = k + active.to(torch.int32)
-        rr = _dot(r, r)
+        rr = dot(r, r)
     res = torch.sqrt(rr / torch.clamp(b_norm2, min=tiny))
     return x, SolveInfo(residual=res, iterations=k, converged=res <= tol)
 

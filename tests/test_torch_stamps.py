@@ -115,6 +115,11 @@ def test_port_imports_neither_jax_nor_reference():
             "nodal_tpu_torch.ops.grid_weighted, "
             "nodal_tpu_torch.ops.grid_weighted3, "
             "nodal_tpu_torch.ops.weighted_stencil, "
+            "nodal_tpu_torch.parallel.mesh, "
+            "nodal_tpu_torch.parallel.multihost, "
+            "nodal_tpu_torch.parallel.halo, "
+            "nodal_tpu_torch.parallel.sharded, "
+            "nodal_tpu_torch.parallel.dryrun, "
             "sys; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'nodal_tpu' not in sys.modules, 'nodal_tpu imported'")
