@@ -61,6 +61,7 @@ from nodal_tpu_torch.ops.scalar_band import (MAX_W, node_sband_plan,
 from nodal_tpu_torch.ops.sparse_schur import (
     general_auto_viable, general_sparse_adjoint_gradient)
 from nodal_tpu_torch.ops.tridiag import tridiag_matvec
+from nodal_tpu_torch.utils import tracing
 from nodal_tpu_torch.utils.device import resolve_device
 
 #: Rows with more COO entries than this keep the scatter-add audit (the
@@ -243,7 +244,13 @@ def _escalating_solver(stamps: StampTensors, inner, transpose: bool = False):
     st = _transposed_stamps(stamps) if transpose else stamps
 
     def run(params_batch, rhs=None):
-        x = inner(params_batch, rhs).to(torch.float64)
+        with tracing.span("contract.run", params_batch):
+            return _run(params_batch, rhs)
+
+    def _run(params_batch, rhs):
+        with tracing.span("tier.solve", params_batch):
+            x = inner(params_batch, rhs)
+        x = x.to(torch.float64)
         g_vals, rhs_vals = stamp_values(st, params_batch.to(torch.float64))
         if rhs is None:
             b64 = _coo_rhs_vec(st, rhs_vals, x)
@@ -254,12 +261,17 @@ def _escalating_solver(stamps: StampTensors, inner, transpose: bool = False):
         def correct(x):
             """One defect pass: (x+dx, dx_rel), dx_rel the worst
             per-sample ‖dx‖∞/‖x‖∞ — the error estimate of x."""
-            r = b64 - _coo_apply(st, g_vals, x)
-            dx = inner(params_batch, r.to(torch.float32)).to(torch.float64)
-            x_scale = x.abs().amax(dim=1).clamp_min(1e-30)
-            # The loop condition reads this scalar on the host: one device
-            # synchronisation per pass.
-            dx_rel = float((dx.abs().amax(dim=1) / x_scale).max())
+            tracing.count("contract_passes")
+            with tracing.span("contract.pass"):
+                r = b64 - _coo_apply(st, g_vals, x)
+                with tracing.span("tier.solve", params_batch):
+                    dx = inner(params_batch, r.to(torch.float32))
+                dx = dx.to(torch.float64)
+                x_scale = x.abs().amax(dim=1).clamp_min(1e-30)
+                # The loop condition reads this scalar on the host: one
+                # device synchronisation per pass.
+                tracing.count("host_syncs")
+                dx_rel = float((dx.abs().amax(dim=1) / x_scale).max())
             return x + dx, dx_rel
 
         # Pass 1, unconditional: dx₁ estimates the raw solve's error, which
@@ -280,7 +292,9 @@ def _escalating_solver(stamps: StampTensors, inner, transpose: bool = False):
         rel_s = r.abs().amax(dim=1) / b_scale
         bad = (rel_s > _CONTRACT_TOL) | ~torch.isfinite(rel_s)
         # Host synchronisation: which samples take the pivoted rescue.
+        tracing.count("host_syncs")
         idx = torch.nonzero(bad).flatten()
+        tracing.count("rescued_samples", idx.numel())
         if idx.numel():
             core = make_dense_core(stamps, torch.float64)
             chunk = max(1, _ESCALATE_CHUNK_BYTES // (stamps.n * stamps.n * 8))
@@ -447,7 +461,8 @@ def _band_solver(stamps: StampTensors, plan, dtype, refine: bool, solve):
     if not refine:
 
         def solve_batch(params_batch, rhs=None):
-            W, b = plan.assemble(stamps, params_batch, dtype=dtype)
+            with tracing.span("band.assemble", params_batch):
+                W, b = plan.assemble(stamps, params_batch, dtype=dtype)
             if rhs is not None:
                 b = plan.rhs_to_band(rhs, dtype)
             return plan.unpermute(solve(W, b))
@@ -455,7 +470,8 @@ def _band_solver(stamps: StampTensors, plan, dtype, refine: bool, solve):
         return solve_batch
 
     def solve_batch(params_batch, rhs=None):
-        W, b = plan.assemble(stamps, params_batch, dtype=torch.float32)
+        with tracing.span("band.assemble", params_batch):
+            W, b = plan.assemble(stamps, params_batch, dtype=torch.float32)
         if rhs is not None:
             b = plan.rhs_to_band(rhs, torch.float32)
         x = plan.unpermute(solve(W, b))
@@ -974,7 +990,8 @@ class BatchedSolver:
 
         Returns [B, n_unknowns] solutions (potentials then branch currents).
         """
-        return self._solve(self._params(params_batch, self.dtype))
+        with tracing.root("batch.call"):
+            return self._solve(self._params(params_batch, self.dtype))
 
     def residuals(self, params_batch, solutions) -> torch.Tensor:
         """Relative residuals ``max|G x - b| / max(max|b|, 1)`` per batch

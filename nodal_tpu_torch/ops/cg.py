@@ -25,6 +25,8 @@ from typing import Callable, NamedTuple
 import torch
 import torch.distributed as dist
 
+from nodal_tpu_torch.utils import tracing
+
 
 class SolveInfo(NamedTuple):
     residual: torch.Tensor    # [B] final relative residual
@@ -46,6 +48,14 @@ def _group_dot(u: torch.Tensor, v: torch.Tensor, group) -> torch.Tensor:
     d = _dot(u, v)
     dist.all_reduce(d, group=group)
     return d
+
+
+def _continuation(active: torch.Tensor) -> int:
+    """The samples still stepping, read on the host: a loop's continuation
+    test and its one host sync an iteration."""
+    tracing.count("host_syncs")
+    with tracing.span("cg.sync"):
+        return int(active.sum())
 
 
 def _safe_div(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
@@ -94,28 +104,29 @@ def cg(matvec: Callable, b: torch.Tensor, x0: torch.Tensor | None = None, *,
     while True:
         active = (rr > atol2) & (k < maxiter)
         # The loop's one host sync an iteration: the continuation test.
-        n_active = int(active.sum())
+        n_active = _continuation(active)
         if n_active == 0:
             break
-        Ap = matvec(p)
-        alpha = _per_sample(_safe_div(rz, dot(p, Ap)), p)
-        x_new = x + alpha * p
-        r_new = r - alpha * Ap
-        z_new = M(r_new)
-        rz_new = dot(r_new, z_new)
-        p_new = z_new + _per_sample(_safe_div(rz_new, rz), p) * p
-        if n_active == b.shape[0]:
-            x, r, p, rz = x_new, r_new, p_new, rz_new
-            k = k + 1
-        else:
-            # A stopped sample keeps its state, as under jax.vmap.
-            keep = _per_sample(active, x)
-            x = torch.where(keep, x_new, x)
-            r = torch.where(keep, r_new, r)
-            p = torch.where(keep, p_new, p)
-            rz = torch.where(active, rz_new, rz)
-            k = k + active.to(torch.int32)
-        rr = dot(r, r)
+        with tracing.span("cg.iteration"):
+            Ap = matvec(p)
+            alpha = _per_sample(_safe_div(rz, dot(p, Ap)), p)
+            x_new = x + alpha * p
+            r_new = r - alpha * Ap
+            z_new = M(r_new)
+            rz_new = dot(r_new, z_new)
+            p_new = z_new + _per_sample(_safe_div(rz_new, rz), p) * p
+            if n_active == b.shape[0]:
+                x, r, p, rz = x_new, r_new, p_new, rz_new
+                k = k + 1
+            else:
+                # A stopped sample keeps its state, as under jax.vmap.
+                keep = _per_sample(active, x)
+                x = torch.where(keep, x_new, x)
+                r = torch.where(keep, r_new, r)
+                p = torch.where(keep, p_new, p)
+                rz = torch.where(active, rz_new, rz)
+                k = k + active.to(torch.int32)
+            rr = dot(r, r)
     res = torch.sqrt(rr / torch.clamp(b_norm2, min=tiny))
     return x, SolveInfo(residual=res, iterations=k, converged=res <= tol)
 
@@ -154,36 +165,37 @@ def bicgstab(matvec: Callable, b: torch.Tensor,
     while True:
         active = (rr > atol2) & (k < maxiter) & ~broken
         # The loop's one host sync an iteration: the continuation test.
-        n_active = int(active.sum())
+        n_active = _continuation(active)
         if n_active == 0:
             break
-        rho_new = _dot(rhat, r)
-        beta = (rho_new / _safe(rho, eps)) * (alpha / _safe(omega, eps))
-        p_new = r + _per_sample(beta, r) * (p - _per_sample(omega, r) * v)
-        phat = M(p_new)
-        v_new = matvec(phat)
-        alpha_new = rho_new / _safe(_dot(rhat, v_new), eps)
-        s = r - _per_sample(alpha_new, r) * v_new
-        shat = M(s)
-        t = matvec(shat)
-        omega_new = _dot(t, s) / _safe(_dot(t, t), eps)
-        x_new = (x + _per_sample(alpha_new, x) * phat
-                 + _per_sample(omega_new, x) * shat)
-        r_new = s - _per_sample(omega_new, r) * t
-        new = (x_new, r_new, p_new, v_new, rho_new, alpha_new, omega_new)
-        if n_active == B:
-            x, r, p, v, rho, alpha, omega = new
-            k = k + 1
-        else:
-            # A stopped sample keeps its state, as under jax.vmap.
-            keep = _per_sample(active, x)
-            x, r, p, v = (torch.where(keep, a, o) for a, o in
-                          zip(new[:4], (x, r, p, v)))
-            rho, alpha, omega = (torch.where(active, a, o) for a, o in
-                                 zip(new[4:], (rho, alpha, omega)))
-            k = k + active.to(torch.int32)
-        broken = broken | (active & (rho_new.abs() < eps))
-        rr = _dot(r, r)
+        with tracing.span("cg.iteration"):
+            rho_new = _dot(rhat, r)
+            beta = (rho_new / _safe(rho, eps)) * (alpha / _safe(omega, eps))
+            p_new = r + _per_sample(beta, r) * (p - _per_sample(omega, r) * v)
+            phat = M(p_new)
+            v_new = matvec(phat)
+            alpha_new = rho_new / _safe(_dot(rhat, v_new), eps)
+            s = r - _per_sample(alpha_new, r) * v_new
+            shat = M(s)
+            t = matvec(shat)
+            omega_new = _dot(t, s) / _safe(_dot(t, t), eps)
+            x_new = (x + _per_sample(alpha_new, x) * phat
+                     + _per_sample(omega_new, x) * shat)
+            r_new = s - _per_sample(omega_new, r) * t
+            new = (x_new, r_new, p_new, v_new, rho_new, alpha_new, omega_new)
+            if n_active == B:
+                x, r, p, v, rho, alpha, omega = new
+                k = k + 1
+            else:
+                # A stopped sample keeps its state, as under jax.vmap.
+                keep = _per_sample(active, x)
+                x, r, p, v = (torch.where(keep, a, o) for a, o in
+                              zip(new[:4], (x, r, p, v)))
+                rho, alpha, omega = (torch.where(active, a, o) for a, o in
+                                     zip(new[4:], (rho, alpha, omega)))
+                k = k + active.to(torch.int32)
+            broken = broken | (active & (rho_new.abs() < eps))
+            rr = _dot(r, r)
     res = torch.sqrt(rr / torch.clamp(b_norm2, min=eps))
     return x, SolveInfo(residual=res, iterations=k, converged=res <= tol)
 

@@ -42,7 +42,9 @@ import torch
 import torch.nn.functional as F
 
 from nodal_tpu_torch.ops import stencil
-from nodal_tpu_torch.ops.cg import SolveInfo, _dot, _per_sample, _safe_div
+from nodal_tpu_torch.ops.cg import (SolveInfo, _continuation, _dot,
+                                    _per_sample, _safe_div)
+from nodal_tpu_torch.utils import tracing
 
 #: Tile of ``update_partials``; must match ``kTileH`` and ``kTileW`` in
 #: cg.cu.
@@ -236,28 +238,29 @@ def fused_grid_cg(b: torch.Tensor, preconditioner, *, weight: float = 1.0,
     while True:
         active = (rr > atol2) & (k < maxiter)
         # The loop's one host sync an iteration: the continuation test.
-        n_active = int(active.sum())
+        n_active = _continuation(active)
         if n_active == 0:
             break
-        lp, part_s = stencil_partials(p, weight=weight)
-        p_lp, sum_p = part_s.sum(dim=1).unbind(-1)
-        mean_p = sum_p / n_total
-        p_ap = p_lp + mean_p * sum_p  # pᵀ(L + mean)p
-        alpha = _safe_div(rz, p_ap)
-        if n_active < B:
-            alpha = torch.where(active, alpha, torch.zeros_like(alpha))
-        x, r, part_u = update_partials(x, r, p, lp, alpha, mean_p)
-        rr_new = part_u.sum(dim=1)
-        z = preconditioner(r)
-        rz_new = _dot(r, z)
-        p_new = z + _per_sample(_safe_div(rz_new, rz), p) * p
-        if n_active == B:
-            p, rz, rr = p_new, rz_new, rr_new
-            k = k + 1
-        else:
-            p = torch.where(_per_sample(active, p), p_new, p)
-            rz = torch.where(active, rz_new, rz)
-            rr = torch.where(active, rr_new, rr)
-            k = k + active.to(torch.int32)
+        with tracing.span("cg.iteration"):
+            lp, part_s = stencil_partials(p, weight=weight)
+            p_lp, sum_p = part_s.sum(dim=1).unbind(-1)
+            mean_p = sum_p / n_total
+            p_ap = p_lp + mean_p * sum_p  # pᵀ(L + mean)p
+            alpha = _safe_div(rz, p_ap)
+            if n_active < B:
+                alpha = torch.where(active, alpha, torch.zeros_like(alpha))
+            x, r, part_u = update_partials(x, r, p, lp, alpha, mean_p)
+            rr_new = part_u.sum(dim=1)
+            z = preconditioner(r)
+            rz_new = _dot(r, z)
+            p_new = z + _per_sample(_safe_div(rz_new, rz), p) * p
+            if n_active == B:
+                p, rz, rr = p_new, rz_new, rr_new
+                k = k + 1
+            else:
+                p = torch.where(_per_sample(active, p), p_new, p)
+                rz = torch.where(active, rz_new, rz)
+                rr = torch.where(active, rr_new, rr)
+                k = k + active.to(torch.int32)
     res = torch.sqrt(rr / torch.clamp(b_norm2, min=tiny))
     return x, SolveInfo(residual=res, iterations=k, converged=res <= tol)

@@ -33,6 +33,7 @@ import torch
 from nodal_tpu_torch.ops import stencil
 from nodal_tpu_torch.ops.cg import SolveInfo, cg
 from nodal_tpu_torch.ops.fused_cg import fused_grid_cg
+from nodal_tpu_torch.utils import tracing
 from nodal_tpu_torch.utils.device import resolve_device
 
 # Weighted-Jacobi smoothing factor: 4/5 is optimal-ish for the 2D 5-point
@@ -139,13 +140,14 @@ def grid_solve(h: int, w: int, b, *, dtype=torch.float32, tol=1e-7,
                          f"expected [B, {h}, {w}] or [{h}, {w}]")
     if maxiter is None:
         maxiter = 200 if mg else 20 * max(h, w)
-    M = make_mg_preconditioner(backend=mg_backend) if mg else None
-    b = b - b.mean(dim=(1, 2), keepdim=True)
-    if fused_cg and mg and mg_backend == "auto" and dev.type == "cuda":
-        x, info = fused_grid_cg(b, M, tol=tol, maxiter=maxiter)
-    else:
-        x, info = cg(grid_operator, b, preconditioner=M, tol=tol,
-                     maxiter=maxiter)
+    with tracing.root("grid.solve"):
+        M = make_mg_preconditioner(backend=mg_backend) if mg else None
+        b = b - b.mean(dim=(1, 2), keepdim=True)
+        if fused_cg and mg and mg_backend == "auto" and dev.type == "cuda":
+            x, info = fused_grid_cg(b, M, tol=tol, maxiter=maxiter)
+        else:
+            x, info = cg(grid_operator, b, preconditioner=M, tol=tol,
+                         maxiter=maxiter)
     if single:
         return x[0], SolveInfo(*(t[0] for t in info))
     return x, info

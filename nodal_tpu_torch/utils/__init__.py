@@ -1,2 +1,2 @@
-"""Utilities: netlist generators, the device check and the CUDA kernel
-build."""
+"""Utilities: netlist generators, the device check, the CUDA kernel build
+and the spans and counters of the hot paths (``tracing``)."""
