@@ -35,6 +35,7 @@ the f64 audit included, stays on that device.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 import math
 
@@ -228,7 +229,10 @@ def _escalating_solver(stamps: StampTensors, inner, transpose: bool = False):
 
     ``inner(pb, rhs=None)`` is the tier's raw f32 solve (``rhs`` in natural
     order; for ``transpose=True`` it solves the transposed system and
-    ``rhs`` is required).
+    ``rhs`` is required).  Where ``inner`` has a prepared form,
+    ``inner.prepare(pb) -> resolve(rhs=None)``, the operator is prepared
+    once a run and every pass reuses it; otherwise each solve is a call
+    of ``inner``.
 
     Why error, not residual: the f32 solves are backward-stable, so their
     residual sits at ~ε₃₂ whatever the conditioning while the error is
@@ -249,7 +253,10 @@ def _escalating_solver(stamps: StampTensors, inner, transpose: bool = False):
 
     def _run(params_batch, rhs):
         with tracing.span("tier.solve", params_batch):
-            x = inner(params_batch, rhs)
+            prepare = getattr(inner, "prepare", None)
+            resolve = (functools.partial(inner, params_batch)
+                       if prepare is None else prepare(params_batch))
+            x = resolve(rhs)
         x = x.to(torch.float64)
         g_vals, rhs_vals = stamp_values(st, params_batch.to(torch.float64))
         if rhs is None:
@@ -265,7 +272,7 @@ def _escalating_solver(stamps: StampTensors, inner, transpose: bool = False):
             with tracing.span("contract.pass"):
                 r = b64 - _coo_apply(st, g_vals, x)
                 with tracing.span("tier.solve", params_batch):
-                    dx = inner(params_batch, r.to(torch.float32))
+                    dx = resolve(r.to(torch.float32))
                 dx = dx.to(torch.float64)
                 x_scale = x.abs().amax(dim=1).clamp_min(1e-30)
                 # The loop condition reads this scalar on the host: one
@@ -285,6 +292,9 @@ def _escalating_solver(stamps: StampTensors, inner, transpose: bool = False):
             # loop runs to the cap and hands off to the rescue.
             rho = min(dx_new / max(dx_rel, 1e-300), 1.0)
             dx_rel, k = dx_new, k + 1
+        # The prepared operator goes before the rescue, whose peak it
+        # would raise.
+        del resolve
 
         if stamps.n > _ESCALATE_DENSE_MAX_N:
             return x
@@ -457,28 +467,37 @@ def _band_solver(stamps: StampTensors, plan, dtype, refine: bool, solve):
     The band is never materialised in f64: the passes read the stamp
     entries (O(B·nnz)) instead of an f64 copy of the band, which would be
     the largest tensor of the call.
+
+    The raw solve has a prepared form, ``solve_batch.prepare(pb) ->
+    resolve(rhs=None)``: the band assembled once, then any number of
+    solves on it (``rhs=None`` solves the stamped right-hand side).  The
+    contract layer reuses it across its defect passes; neither kernel
+    writes its band.
     """
+
+    def prepare(params_batch, dtype=dtype):
+        with tracing.span("band.assemble", params_batch):
+            W, b = plan.assemble(stamps, params_batch, dtype=dtype)
+            tracing.count("band_assemblies")
+
+        def resolve(rhs=None):
+            rb = b if rhs is None else plan.rhs_to_band(rhs, dtype)
+            return plan.unpermute(solve(W, rb))
+
+        return resolve
+
     if not refine:
 
         def solve_batch(params_batch, rhs=None):
-            with tracing.span("band.assemble", params_batch):
-                W, b = plan.assemble(stamps, params_batch, dtype=dtype)
-            if rhs is not None:
-                b = plan.rhs_to_band(rhs, dtype)
-            return plan.unpermute(solve(W, b))
+            return prepare(params_batch)(rhs)
 
+        solve_batch.prepare = prepare
         return solve_batch
 
     def solve_batch(params_batch, rhs=None):
-        with tracing.span("band.assemble", params_batch):
-            W, b = plan.assemble(stamps, params_batch, dtype=torch.float32)
-        if rhs is not None:
-            b = plan.rhs_to_band(rhs, torch.float32)
-        x = plan.unpermute(solve(W, b))
-        return _coo_defect_refine(
-            stamps, params_batch, rhs, x,
-            lambda r: plan.unpermute(
-                solve(W, plan.rhs_to_band(r, torch.float32))))
+        resolve = prepare(params_batch, torch.float32)
+        return _coo_defect_refine(stamps, params_batch, rhs, resolve(rhs),
+                                  resolve)
 
     return solve_batch
 

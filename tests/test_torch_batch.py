@@ -20,6 +20,7 @@ from nodal_tpu_torch import BatchedSolver, Circuit, Netlist  # noqa: E402
 from nodal_tpu_torch import batch as tbatch  # noqa: E402
 from nodal_tpu_torch.models.stamps import stamps_from_reference  # noqa: E402
 from nodal_tpu_torch.ops import pcr  # noqa: E402
+from nodal_tpu_torch.utils import tracing  # noqa: E402
 from nodal_tpu_torch.utils.gridgen import grid_rows, ladder_rows  # noqa: E402
 
 RUNGS, B = 64, 16
@@ -157,6 +158,89 @@ def test_contract_layer_escalates_like_reference(ladder):
     assert len(calls) == 1 + tbatch._ESCALATE_MAX_PASSES
     assert _rel_err(got.numpy(), want) <= 1e-9
     assert _rel_err(got.numpy(), _dense_f64(jc, params)) <= 1e-6
+
+
+#: A 9×40 mesh with a current source: the scalar band takes it, the block
+#: band when forced.
+MESH = list(grid_rows(9, 40, (0, 0), (8, 39))) + [["src", "A", "1", "1", "g"]]
+
+
+@pytest.fixture(scope="module")
+def mesh_sweep():
+    """(port stamps, f32 params [4, n_components], an f64 natural-order
+    RHS [4, n])."""
+    stamps = Circuit(Netlist.from_rows(MESH)).stamps
+    rng = np.random.default_rng(21)
+    base = stamps.params
+    params = base * (1.0 + 0.05 * rng.standard_normal((4, len(base))))
+    return (stamps, torch.as_tensor(params, dtype=torch.float32),
+            torch.as_tensor(rng.standard_normal((4, stamps.n))))
+
+
+def _traced(fn, *args):
+    """``fn(*args)`` in a call record of its own: (result, record)."""
+    tracing.enable()
+    try:
+        with tracing.root("check"):
+            out = fn(*args)
+    finally:
+        tracing.disable()
+    return out, tracing.recent(1)[0]
+
+
+@pytest.mark.parametrize("transpose", [False, True],
+                         ids=["forward", "transposed"])
+@pytest.mark.parametrize("method", ["sband", "band"])
+def test_contract_layer_reuses_the_band_bit_for_bit(mesh_sweep, method,
+                                                    transpose):
+    """The contract layer assembles the band once a run; the same run
+    through a raw solve without a prepared form assembles it for every
+    solve.  The answers are equal bit for bit: the same band meets the
+    same kernel with the same right-hand sides."""
+    stamps, params, rhs = mesh_sweep
+    solver = BatchedSolver(stamps, method=method, device="cpu")
+    raw = BatchedSolver(stamps, method=method, refine=False,
+                        device="cpu")._solve_rhs_t
+    assert solver.method == method and hasattr(raw, "prepare")
+    twice = tbatch._escalating_solver(
+        stamps, lambda pb, rhs=None: raw(pb, rhs), transpose=transpose)
+    if transpose:
+        args, once = (params, rhs), solver._solve_rhs_t
+    else:
+        args, once = (params,), solver
+    got, call = _traced(once, *args)
+    want, ref_call = _traced(twice, *args)
+    assert torch.equal(got, want)
+    passes = call.counters["contract_passes"]
+    assert ref_call.counters["contract_passes"] == passes >= 1
+    assert call.counters["band_assemblies"] == 1
+    assert ref_call.counters["band_assemblies"] == 1 + passes
+
+
+def test_prepared_inner_assembles_once_a_run(mesh_sweep):
+    """A prepared solve 5 % off contracts the error by only 0.05 a pass,
+    so the passes run to their cap: a tier solve each, all on the one
+    band assembled by the first, and the contract still met."""
+    stamps, params, _ = mesh_sweep
+    raw = BatchedSolver(stamps, refine=False, device="cpu")._solve_rhs_t
+
+    def inner(pb, rhs=None):
+        raise AssertionError("a prepared inner is solved through resolve")
+
+    def prepare(pb):
+        resolve = raw.prepare(pb)
+        return lambda rhs=None: 1.05 * resolve(rhs)
+
+    inner.prepare = prepare
+    got, call = _traced(tbatch._escalating_solver(stamps, inner), params)
+    passes = tbatch._ESCALATE_MAX_PASSES
+    assert call.counters["contract_passes"] == passes
+    assert call.counters["band_assemblies"] == 1
+    assert len(call.find("tier.solve")) == 1 + passes
+    assert len(call.find("band.assemble")) == 1
+    truth = BatchedSolver(stamps, dtype=torch.float64, refine=False,
+                          device="cpu")(params.to(torch.float64))
+    assert _rel_err(got.numpy(), truth.numpy()) <= 1e-6
 
 
 def test_dense_row_audit_matches_reference():

@@ -97,10 +97,10 @@ def test_sweep_call_record(profiled_sweep):
     names = [s.name for s in call.spans]
     assert names.count("contract.run") == 1
     assert names.count("tier.solve") == 2
-    assert names.count("band.assemble") == 2
+    assert names.count("band.assemble") == 1
     assert names.count("contract.pass") == 1
-    assert call.counters == {"contract_passes": 1, "host_syncs": 2,
-                             "rescued_samples": 0}
+    assert call.counters == {"band_assemblies": 1, "contract_passes": 1,
+                             "host_syncs": 2, "rescued_samples": 0}
 
     def ancestors(span):
         while span.parent is not None:
