@@ -24,6 +24,7 @@ import torch
 
 from nodal_tpu_torch.ops.band import _KB_CHOICES, band_thomas_solve
 from nodal_tpu_torch.ops.lu import factor_launches, factor_scratch
+from nodal_tpu_torch.utils import tracing
 
 #: Right-hand sides one host loop takes.
 MAX_R = 128
@@ -114,30 +115,37 @@ def band_solve_multi(W: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
 
     CPU tensors: the plain torch solver.  CUDA tensors: the CUDA kernels,
     whose wrapper adds one to ``band_solve_multi.launches`` per host loop
-    (:func:`launch_plan`'s ``calls`` a slice of ``MAX_R`` columns) and records
-    ``(B, nb, kb, r)`` of the call in ``band_solve_multi.last_shape``.
+    (:func:`launch_plan`'s ``calls`` a slice of ``MAX_R`` columns) and the
+    loop's kernel launches (:func:`launch_plan`'s ``launches``) to
+    ``band_solve_multi.kernels`` and to the tracing counter
+    ``thomas_kernels``, and records ``(B, nb, kb, r)`` of the call in
+    ``band_solve_multi.last_shape``.  Each call is a ``thomas.solve`` span,
+    device-timed on CUDA.
     """
     _check(W, R)
-    if W.device.type == "cpu":
-        return band_thomas_solve(W, R)
-    if W.device.type != "cuda":
-        raise ValueError(
-            f"band_solve_multi runs on CPU or CUDA tensors, not {W.device}")
-    for name, t in (("W", W), ("R", R)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    B, nb, kb, _ = W.shape
-    r = R.shape[2]
-    if r > MAX_R:
-        X = torch.cat([_launch(W, R[..., c:c + MAX_R].contiguous())
-                       for c in range(0, r, MAX_R)], dim=-1)
-    else:
-        X = _launch(W, R)
-    band_solve_multi.last_shape = (B, nb, kb, r)
-    return X
+    with tracing.span("thomas.solve", W):
+        if W.device.type == "cpu":
+            return band_thomas_solve(W, R)
+        if W.device.type != "cuda":
+            raise ValueError(
+                f"band_solve_multi runs on CPU or CUDA tensors, not "
+                f"{W.device}")
+        for name, t in (("W", W), ("R", R)):
+            if not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous")
+        B, nb, kb, _ = W.shape
+        r = R.shape[2]
+        if r > MAX_R:
+            X = torch.cat([_launch(W, R[..., c:c + MAX_R].contiguous())
+                           for c in range(0, r, MAX_R)], dim=-1)
+        else:
+            X = _launch(W, R)
+        band_solve_multi.last_shape = (B, nb, kb, r)
+        return X
 
 
 band_solve_multi.launches = 0
+band_solve_multi.kernels = 0
 band_solve_multi.last_shape = None
 
 
@@ -169,6 +177,8 @@ def _launch(W: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
                     f"block-Thomas kernels failed with CUDA error {err} "
                     f"(B={B}, nb={nb}, kb={kb}, r={r}, {W.dtype}, {plan})")
             band_solve_multi.launches += 1
+            band_solve_multi.kernels += plan.launches
+            tracing.count("thomas_kernels", plan.launches)
     return X
 
 

@@ -11,12 +11,17 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from nodal_tpu_torch import Circuit, Netlist  # noqa: E402
+import numpy as np  # noqa: E402
+
+from nodal_tpu_torch import BatchedSolver, Circuit, Netlist  # noqa: E402
 from nodal_tpu_torch.ops.band import band_plan  # noqa: E402
-from nodal_tpu_torch.ops.block_thomas import band_solve_multi  # noqa: E402
+from nodal_tpu_torch.ops.block_thomas import (  # noqa: E402
+    band_solve_multi, launch_plan)
 from nodal_tpu_torch.ops.sband import sband_solve_multi  # noqa: E402
 from nodal_tpu_torch.ops.scalar_band import sband_plan  # noqa: E402
-from nodal_tpu_torch.utils.gridgen import grid_rows  # noqa: E402
+from nodal_tpu_torch.utils import tracing  # noqa: E402
+from nodal_tpu_torch.utils.gridgen import (  # noqa: E402
+    grid_rows, weighted_lattice_rows)
 
 pytestmark = pytest.mark.chip
 
@@ -57,3 +62,36 @@ def test_band_kernels_leave_their_inputs(cuda, tier, dtype):
     assert torch.equal(W, W0)
     assert torch.equal(R, R0)
     assert torch.equal(again, x)
+
+
+def test_thomas_kernels_counted_a_host_loop(cuda):
+    """A ``band``-tier sweep call of the 20×10×10 lattice: the tracing
+    counter ``thomas_kernels`` and ``band_solve_multi.kernels`` both add
+    ``launch_plan``'s kernels for every host loop, and each block-Thomas
+    solve is a device-timed ``thomas.solve`` span."""
+    d, h, w = 20, 10, 10
+    rows = list(weighted_lattice_rows(
+        np.ones((d, h, w - 1)), np.ones((d, h - 1, w)),
+        np.ones((d - 1, h, w)), (0, 0, 0), (d - 1, h - 1, w - 1)))
+    circuit = Circuit(Netlist.from_rows(rows + [["src", "A", "1", "1",
+                                                 "g"]]))
+    solver = BatchedSolver(circuit, device=cuda)
+    assert solver.method == "band"
+    params = np.tile(circuit.stamps.params, (64, 1))
+    solver(params)  # builds the library outside the counted call
+    loops, kernels = band_solve_multi.launches, band_solve_multi.kernels
+    tracing.enable()
+    try:
+        solver(params)
+        (call,) = tracing.recent(1)
+    finally:
+        tracing.disable()
+    loops = band_solve_multi.launches - loops
+    per_loop = launch_plan(*band_solve_multi.last_shape, 4).launches
+    assert band_solve_multi.last_shape == (64, 16, 128, 1)
+    assert loops == 1 + call.counters["contract_passes"]
+    assert call.counters["thomas_kernels"] == loops * per_loop == \
+        band_solve_multi.kernels - kernels
+    spans = call.find("thomas.solve")
+    assert len(spans) == loops
+    assert all(s.device_ms > 0 for s in spans)

@@ -14,9 +14,11 @@ torch = pytest.importorskip("torch")
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from nodal_tpu_torch import BatchedSolver, Circuit, Netlist  # noqa: E402
+from nodal_tpu_torch.ops.block_thomas import band_solve_multi  # noqa: E402
 from nodal_tpu_torch.ops.grid import grid_solve  # noqa: E402
 from nodal_tpu_torch.utils import tracing  # noqa: E402
-from nodal_tpu_torch.utils.gridgen import grid_rows, ladder_rows  # noqa: E402
+from nodal_tpu_torch.utils.gridgen import (  # noqa: E402
+    grid_rows, ladder_rows, weighted_lattice_rows)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -148,6 +150,48 @@ def test_grid_solve_counts_iterations_and_syncs():
     root = call.spans[0]
     for s in call.find("cg.iteration") + call.find("cg.sync"):
         assert call.spans[s.parent] is root
+
+
+@pytest.fixture(scope="module")
+def lattice():
+    """A 7×10×10 unit lattice: the smallest depth whose ``auto`` tier is
+    ``band`` (block Thomas)."""
+    d, h, w = 7, 10, 10
+    rows = list(weighted_lattice_rows(
+        np.ones((d, h, w - 1)), np.ones((d, h - 1, w)),
+        np.ones((d - 1, h, w)), (0, 0, 0), (d - 1, h - 1, w - 1)))
+    circuit = Circuit(Netlist.from_rows(rows + [["src", "A", "1", "1",
+                                                 "g"]]))
+    solver = BatchedSolver(circuit, device="cpu")
+    assert solver.method == "band" and solver.refine == "auto"
+    return solver, np.tile(circuit.stamps.params, (2, 1))
+
+
+def test_band_call_records_a_thomas_span_a_solve(lattice):
+    """One ``thomas.solve`` span a block-Thomas solve: the raw solve and
+    each defect pass, each inside its ``tier.solve``.  On the CPU the
+    plain solver runs: no kernel is counted."""
+    solver, params = lattice
+    kernels = band_solve_multi.kernels
+    tracing.enable()
+    last = _last_id()
+    solver(params)
+    (call,) = _newer(last)
+    spans = call.find("thomas.solve")
+    assert len(spans) == 1 + call.counters["contract_passes"]
+    assert len(spans) == len(call.find("tier.solve"))
+    for s in spans:
+        assert call.spans[s.parent].name == "tier.solve"
+        assert s.device_ms is None
+    assert call.counters.get("thomas_kernels", 0) == 0
+    assert band_solve_multi.kernels == kernels
+
+
+def test_band_call_untraced_records_nothing(lattice):
+    solver, params = lattice
+    last = _last_id()
+    solver(params)
+    assert _newer(last) == []
 
 
 def test_rescued_sample_is_counted():
