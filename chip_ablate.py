@@ -63,9 +63,6 @@ VARIANTS = {
     "inv_persistent": [(INVGRID, INVGRID.replace(
         "B < kMaxGridY ? B : kMaxGridY",
         "B < 132 * Inv<T>::kMinBlocks ? B : 132 * Inv<T>::kMinBlocks"))],
-    # the f64 inverse's pivot block by one warp in registers, as in f32
-    "inv_f64_warp_pivot": [("      if constexpr (sizeof(T) == 8) {\n        block_gauss_jordan(",
-                            "      if constexpr (sizeof(T) == 0) {\n        block_gauss_jordan(")],
     # f32 tiles: one block an SM (registers without spills)
     "gemm_f32_one_block": [(F32MB, F32MB.replace("kMinBlocks = 2", "kMinBlocks = 1"))],
     # f64 tiles: a fourth stage in the ring

@@ -40,12 +40,12 @@
 // 67 TFLOP/s in both dtypes (f32 on the CUDA cores, f64 on the FP64 tensor
 // cores); G read once, R read and X written once, far fewer bytes.  So the
 // work is bound by operations: 11.0 ms at B = 1024, n = 1024, where this
-// design takes 2.9× that in f32 and 4.3× in f64 (PERF.md §6).  The
+// design takes 2.7× that in f32 and 4.3× in f64 (PERF.md §6).  The
 // trailing update is ~80 % of the operations and of the time: its
 // tiles run at 27 TFLOP/s (f32: 4-byte transposing copies of A, register
 // spills at two blocks an SM) and 22 (f64: the C tile's trip through
 // device memory at one block an SM).  Panels go in pairs so that the rest
-// of the matrix makes that trip once a pair; the inverses take 14 % (f32)
+// of the matrix makes that trip once a pair; the inverses take 5 % (f32)
 // and 29 % (f64) of the factorization, latency-bound at one block a
 // system.
 

@@ -42,10 +42,11 @@
 // S⁻¹U), against 67 TFLOP/s in f32 (CUDA cores) and in f64 (FP64 tensor
 // cores); device memory: W and R read once, X written once, far less.  So
 // the work is bound by operations, ~2.3 ms at B = 1024, nb = 16, kb = 128,
-// where this design takes 6.6× that in f32 and 15× in f64 (PERF.md
-// §6).  What stands between: the 128×128 inverse, 56–76 % of the time,
-// latency-bound at one block a system (~200 µs a system in f64) and doing
-// 2kb³ where an LU does 2/3·kb³; then the tile products.  Each launch
+// where this design takes 4.4× that in f32 and 15× in f64 (PERF.md
+// §6).  What stands between: in f32 the tile products, 56 % of the time,
+// then the 128×128 inverse, 38 % (dense_tile.cuh: its 128 dependent pivot
+// steps, and 2kb³ where an LU does 2/3·kb³); in f64 the inverse, 76 %,
+// latency-bound at one block a system (~200 µs a system).  Each launch
 // covers the whole batch, so a batch of B puts B tiles on the card at once
 // (the design this replaces walked one system a block, ~350 barrier phases
 // a block row), and for r <= 4 the inverse's launch forms rhs and y_t

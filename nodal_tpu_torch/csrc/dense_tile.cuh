@@ -464,47 +464,50 @@ __device__ __forceinline__ void narrow_rows(const GemmArgs<T>& g) {
 
 // ---- 128×128 diagonal-block inverse --------------------------------------
 
-// Gauss-Jordan without pivoting in four 32-column panels.  The block lives
-// in registers: thread (tr, tc) = (tid / 16, tid % 16) holds rows
-// kRows·tr .. + kRows − 1, columns 8·tc .. + 7.  Per panel P:
-//   1. P's columns go to shared memory k-major (colT), P's rows to rowp;
-//   2. the 32×32 pivot block M_PP is inverted in place in colT (whose
-//      rows P step 4 does not read): in f32 by one warp in registers, lane
-//      i holding row i and the pivot row coming by shuffles; in f64 by the
-//      whole block, element by element;
-//   3. rowp = [Dp | Dp·M_PQ] (Q: the other columns);
-//   4. every row i outside P: M_iQ −= M_iP·rowp_Q and M_iP = −M_iP·Dp, a
-//      rank-32 update summed apart in 4×4 register patches; P's rows take
-//      rowp.
-// Five barriers a panel in f32, 38 in f64.  Shared memory: ~83 KB in f64
-// (no copy of the whole block), ~41 KB in f32.
+// Gauss-Jordan without pivoting in four 32-column panels, the block in
+// registers.  Per panel P (Q: the other columns), with Dp = M_PP⁻¹:
+//   rowp = [Dp | Dp·M_PQ];  every row i outside P: M_iQ −= M_iP·rowp_Q and
+//   M_iP = −M_iP·Dp;  P's rows take rowp,
+// the rank-32 products summed apart from zero in register patches and
+// subtracted last.  The two dtypes are limited by different things and
+// have designs of their own (invert_block_f32, invert_block_f64); both
+// inverse kernels of a source (prefix##_inv) run them.
+
+constexpr int kPanel = 32;
+constexpr int kLdCol = kBlock + 4;
+
+// Shared values of the f64 inverse: colT, rowp, the two Gauss-Jordan
+// buffers and InvApply's rhs.
+constexpr int kInvStash = 2 * kPanel * kPanel;
+
 template <typename T>
 struct Inv;
 template <>
 struct Inv<float> {
   static constexpr int kThreads = 256;
   static constexpr int kMinBlocks = 2;
-  static constexpr int kRows = 8;
+  static constexpr int kGjWarps = 4;  // the warps that invert M_PP
+  static constexpr int kLdP = kPanel + 4;  // 32×32 buffers, column by column
+  // Offsets (values) of the shared buffers; see invert_block_f32.
+  static constexpr int kColT = 0;                          // [2][32][kLdCol]
+  static constexpr int kRowp = kColT + 2 * kPanel * kLdCol;  // [32][128]
+  static constexpr int kRown = kRowp + kPanel * kBlock;      // [32][128]
+  static constexpr int kDp = kRown + kPanel * kBlock;        // [32][kLdP]
+  static constexpr int kColx = kDp + kPanel * kLdP;          // [2][32]
+  static constexpr int kRhs = kColx + 2 * kPanel;            // [4][128]
+  static constexpr int kY = kRhs + 4 * kBlock;               // [4][128]
+  static constexpr int kSmemBytes =
+      (kY + 4 * kBlock) * static_cast<int>(sizeof(float));
 };
 template <>
 struct Inv<double> {
   static constexpr int kThreads = 512;
   static constexpr int kMinBlocks = 1;
   static constexpr int kRows = 4;
+  static constexpr int kSmemBytes =
+      (kPanel * kLdCol + kPanel * kBlock + kInvStash + kBlock * 4) *
+      static_cast<int>(sizeof(double));
 };
-
-constexpr int kPanel = 32;
-constexpr int kLdCol = kBlock + 4;
-
-// Shared values of the inverse: colT, rowp, a stash that takes warp 0's
-// patch (f32) or the two Gauss-Jordan buffers (f64), and InvApply's rhs.
-constexpr int kInvStash = 2 * kPanel * kPanel;
-
-template <typename T>
-constexpr int inv_smem_bytes() {
-  return (kPanel * kLdCol + kPanel * kBlock + kInvStash + kBlock * 4) *
-         static_cast<int>(sizeof(T));
-}
 
 // Four consecutive values from 16-byte-aligned shared memory.
 __device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
@@ -524,41 +527,59 @@ __device__ __forceinline__ void load4(const double* p, double (&v)[4]) {
   v[3] = q1.y;
 }
 
-// The 32×32 block stored column by column at blk (a_ij at blk[j·ld + i])
-// = its inverse, by one warp: in-place Gauss-Jordan without pivoting, each
-// step  p = 1/a_kk;  a_kj = a_kj·p;  a_ik = −a_ik·p;  a_ij −= (a_ik·p)·a_kj.
-// Lane i holds row i; a lane's row is a column of consecutive addresses, so
-// the loads and stores are free of bank conflicts.
-template <typename T>
-__device__ __forceinline__ void warp_gauss_jordan(T* blk, int ld, int lane) {
-  T x[kPanel];
-#pragma unroll
-  for (int j = 0; j < kPanel; ++j) x[j] = blk[j * ld + lane];
-#pragma unroll
-  for (int k = 0; k < kPanel; ++k) {
-    const T p = T(1) / __shfl_sync(0xffffffffu, x[k], k);
-    const T f = x[k] * p;
-#pragma unroll
-    for (int j = 0; j < kPanel; ++j) {
-      const T pkj = __shfl_sync(0xffffffffu, x[j], k);
-      if (j == k) {
-        x[j] = lane == k ? p : -f;
-      } else {
-        x[j] = lane == k ? pkj * p : x[j] - f * pkj;
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < kPanel; ++j) blk[j * ld + lane] = x[j];
+// Two consecutive values from 8-byte-aligned shared memory.
+__device__ __forceinline__ void load2(const float* p, float* v) {
+  const float2 q = *reinterpret_cast<const float2*>(p);
+  v[0] = q.x;
+  v[1] = q.y;
 }
 
-// The same by the whole block, element by element, the block copied into
-// buf (two 32×32 buffers, column by column): each step reads one buffer
-// and writes the other, one barrier a step.  In f64 this beats the warp's
-// version, whose 32 pivot-row values a lane do not fit its registers
-// beside the patch (PERF.md §6).
+__device__ __forceinline__ void store4(float* p, float a, float b, float c,
+                                       float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+
+// The optional work of a block-Thomas inverse launch, r <= 4 right-hand
+// sides: before the inverse rhs = R − L·y (K = 0: rhs = R), after it
+// out = D⁻¹·rhs; all blocks are 128 rows.  It spares the block row two
+// narrow launches.
 template <typename T>
-__device__ __forceinline__ void block_gauss_jordan(T* blk, int ld, T* buf) {
+struct InvApply {
+  Mat<T> L, y, R, out;
+  int K, r;
+};
+
+// Sum of v over the 16 lanes of a half warp (the threads of one row patch).
+template <typename T>
+__device__ __forceinline__ T half_warp_sum(T v) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) {
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  }
+  return v;
+}
+
+// ---- the f64 inverse -----------------------------------------------------
+
+// Thread (tr, tc) = (tid / 16, tid % 16) holds rows 4·tr .. + 3, columns
+// 8·tc .. + 7.  Per panel P:
+//   1. P's columns go to shared memory k-major (colT), P's rows to rowp;
+//   2. M_PP is inverted in place in colT (whose rows P step 4 does not
+//      read) by the whole block, element by element (block_gauss_jordan);
+//   3. rowp = [Dp | Dp·M_PQ];
+//   4. the rank-32 update in 4×4 register patches; P's rows take rowp.
+// 38 barriers a panel: the registers of one warp do not hold the pivot
+// rows beside the patch.  Shared memory: ~83 KB (no copy of the block).
+
+// The 32×32 block stored column by column at blk (a_ij at blk[j·ld + i])
+// = its inverse, in-place Gauss-Jordan without pivoting, each step
+//   p = 1/a_kk;  a_kj = a_kj·p;  a_ik = −a_ik·p;  a_ij −= (a_ik·p)·a_kj,
+// by the whole block, the block copied into buf (two 32×32 buffers, column
+// by column): each step reads one buffer and writes the other, one barrier
+// a step.
+__device__ __forceinline__ void block_gauss_jordan(double* blk, int ld,
+                                                   double* buf) {
+  using T = double;
   constexpr int kThreads = Inv<T>::kThreads;
   constexpr int kSq = kPanel * kPanel;
   const int tid = threadIdx.x;
@@ -594,38 +615,19 @@ __device__ __forceinline__ void block_gauss_jordan(T* blk, int ld, T* buf) {
   }
 }
 
-// The optional work of a block-Thomas inverse launch, r <= 4 right-hand
-// sides: before the inverse rhs = R − L·y (K = 0: rhs = R), after it
-// out = D⁻¹·rhs; all blocks are 128 rows.  It spares the block row two
-// narrow launches.
-template <typename T>
-struct InvApply {
-  Mat<T> L, y, R, out;
-  int K, r;
-};
-
-// Sum of v over the 16 lanes of a half warp (the threads of one row patch).
-template <typename T>
-__device__ __forceinline__ T half_warp_sum(T v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) {
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  }
-  return v;
-}
-
 // D (the 128×128 block at D.at(s, 0, 0)) = D⁻¹; with kApply also the
 // InvApply work, its rhs kept in shared memory across the inverse.
-template <typename T, bool kApply>
-__device__ __forceinline__ void invert_block(Mat<T> D, int B,
-                                             unsigned char* smem,
-                                             InvApply<T> ap) {
+template <bool kApply>
+__device__ __forceinline__ void invert_block_f64(Mat<double> D, int B,
+                                                 unsigned char* smem,
+                                                 InvApply<double> ap) {
+  using T = double;
   constexpr int kThreads = Inv<T>::kThreads, kRows = Inv<T>::kRows;
   T* colT = reinterpret_cast<T*>(smem);  // [kPanel][kLdCol]: M[i][p0 + k]
   T* rowp = colT + kPanel * kLdCol;      // [kPanel][kBlock]: M[p0 + k][c]
-  T* stash = rowp + kPanel * kBlock;     // warp 0's patch during step 2
+  T* stash = rowp + kPanel * kBlock;     // the two Gauss-Jordan buffers
   T* rhs = stash + kInvStash;            // [kBlock][4], kApply only
-  const int tid = threadIdx.x, lane = tid & 31;
+  const int tid = threadIdx.x;
   const int r0 = (tid >> 4) * kRows, c0 = (tid & 15) * 8;
 
   for (int s = blockIdx.x; s < B; s += gridDim.x) {
@@ -682,23 +684,8 @@ __device__ __forceinline__ void invert_block(Mat<T> D, int B,
         }
       }
       __syncthreads();
-      // 2. Dp = M_PP⁻¹ over M_PP in colT: in f32 by warp 0, which parks
-      //    its patch in shared memory meanwhile so that the patch and the
-      //    pivot rows need not fit its registers together; in f64 by the
-      //    whole block.
-      if constexpr (sizeof(T) == 8) {
-        block_gauss_jordan(colT + p0, kLdCol, stash);
-      } else if (tid < 32) {
-#pragma unroll
-        for (int e = 0; e < kRows * 8; ++e) {
-          stash[e * 32 + lane] = a[e / 8][e % 8];
-        }
-        warp_gauss_jordan(colT + p0, kLdCol, lane);
-#pragma unroll
-        for (int e = 0; e < kRows * 8; ++e) {
-          a[e / 8][e % 8] = stash[e * 32 + lane];
-        }
-      }
+      // 2. Dp = M_PP⁻¹ over M_PP in colT, by the whole block.
+      block_gauss_jordan(colT + p0, kLdCol, stash);
       __syncthreads();
       // 3. rowp = [Dp | Dp·M_PQ]: kPanel·kBlock outputs, 8 a thread.
       constexpr int kRowsP = kPanel * 16 / kThreads;  // rowp rows a thread
@@ -804,6 +791,349 @@ __device__ __forceinline__ void invert_block(Mat<T> D, int B,
   }
 }
 
+// ---- the f32 inverse -----------------------------------------------------
+
+// 256 threads, two blocks an SM.  Thread (tr, tc) = (tid / 16, tid % 16)
+// holds rows tr + 16·u (u < 8) and columns 4·tc .. + 3 and 64 + 4·tc .. + 3:
+// every thread holds two rows of each panel, so all eight warps share each
+// panel's update; the block is read from and written to device memory in
+// 16-byte vectors, 256 bytes a row and half warp; and every shared row the
+// update reads serves a half warp conflict-free.  Per panel P (p0 = 32·q):
+//   1. P's columns go to colT, k-major with the rows in thread order
+//      (colT[k·kLdCol + 8·(i % 16) + i / 16] = M[i][p0 + k], so that a
+//      thread's eight rows are two 16-byte vectors; two buffers, so that
+//      panel P + 1 writes one while the update of P still reads the
+//      other), P's rows to rowp with I in place of M_PP;
+//   2. Dp by the first kGjWarps warps (gauss_jordan_f32); in the first
+//      panel the other warps meanwhile form InvApply's rhs (apply_rhs);
+//   3. rown = Dp·rowp = [Dp | Dp·M_PQ], 4×4 outputs a thread;
+//   4. the rank-32 update of each thread's six rows outside P in 6×4
+//      patches, two loads of colT and one of rown for 24 FMAs; its two
+//      rows in P take rown.
+// A barrier after each of steps 1–3, and one a system; ~74 KB of shared
+// memory.  The products are the one-warp design's, in its order, so the
+// inverse is the same bit for bit but for the pivots' reciprocals
+// (pivot_rcp).  On the H100 at B = 1024: 0.179 ms a launch (24 TFLOP/s,
+// 36 % of the CUDA cores' f32 rate), 0.232 ms with InvApply at r = 1; a
+// block's time is ~44 % updates, ~31 % pivot inverses (128 dependent
+// steps), ~14 % step 3 and ~10 % its loads (PERF.md §6).
+
+// 1/x to within an ulp, with no branch: the hardware's approximation and
+// one Newton step.  The IEEE division's slow-path call, which only
+// zeros, infinities and subnormals need, would cut the unrolled
+// Gauss-Jordan into 32 blocks that the compiler cannot interleave; the
+// pivots of the bands and Laplacians served here are none of those.
+__device__ __forceinline__ float pivot_rcp(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return fmaf(r, fmaf(-x, r, 1.f), r);
+}
+
+// Barrier 1 for the first `threads` threads of the block.
+__device__ __forceinline__ void bar_sync_1(int threads) {
+  asm volatile("bar.sync 1, %0;" ::"r"(threads) : "memory");
+}
+
+// The 32×32 block whose row i lane i of the first kWarps warps holds,
+// warp w its columns kC·w .. + kC − 1 in x (kC = 32 / kWarps) = its
+// inverse, in-place Gauss-Jordan without pivoting, each step
+//   p = 1/a_kk;  a_kj = a_kj·p;  a_ik = −a_ik·p;  a_ij −= (a_ik·p)·a_kj.
+// The pivot row comes by shuffles; the pivot column, which one warp
+// holds, through colx (two 32-value buffers): its owner writes it as soon
+// as the step before has updated it, one barrier of the kWarps warps a
+// step.  One warp alone would be bound by its dependent chain of 32
+// shuffles and selects a step (~250 cycles, PERF.md §6).
+template <int kWarps>
+__device__ __forceinline__ void gauss_jordan_f32(float (&x)[kPanel / kWarps],
+                                                 int w, int lane,
+                                                 float* colx) {
+  constexpr int kC = kPanel / kWarps;
+  if (w == 0) colx[lane] = x[0];
+#pragma unroll
+  for (int k = 0; k < kPanel; ++k) {
+    bar_sync_1(32 * kWarps);  // column k in colx[k % 2]
+    const float* col = colx + (k & 1) * kPanel;
+    const float p = pivot_rcp(col[k]);
+    const float f = col[lane] * p;
+#pragma unroll
+    for (int v = 0; v < kC; ++v) {
+      const float pkj = __shfl_sync(0xffffffffu, x[v], k);
+      const float upd = lane == k ? pkj * p : x[v] - f * pkj;
+      x[v] = kC * w + v == k ? (lane == k ? p : -f) : upd;
+    }
+    if (k + 1 < kPanel && w == (k + 1) / kC) {
+      colx[((k + 1) & 1) * kPanel + lane] = x[(k + 1) % kC];
+    }
+  }
+}
+
+// Four values of a row in device memory (one 16-byte access where vec).
+__device__ __forceinline__ float4 row4(const float* p, bool vec) {
+  if (vec) return *reinterpret_cast<const float4*>(p);
+  return make_float4(p[0], p[1], p[2], p[3]);
+}
+
+__device__ __forceinline__ void set_row4(float* p, float4 v, bool vec) {
+  if (vec) {
+    *reinterpret_cast<float4*>(p) = v;
+    return;
+  }
+  p[0] = v.x;
+  p[1] = v.y;
+  p[2] = v.z;
+  p[3] = v.w;
+}
+
+// Whether every row of m starts on 16 bytes.
+__device__ __forceinline__ bool mat_vec4(const Mat<float>& m) {
+  return aligned16(m.p) && m.ld % 4 == 0 && m.stride % 4 == 0;
+}
+
+// rhs[c][i] = R[i][c] − Σ_j L[i][j]·y[j][c] (c < ap.r) for the rows
+// i = t, t + n, ... of system s, y staged in ys[c][j]: thread t reads its
+// rows of L in 16-byte vectors (where L allows), ys's values are the same
+// for the whole warp.  Four partial sums a row, added last.  (A warp a
+// row, with a shuffle reduction, or the same spread over the four panels,
+// measured slower: PERF.md §6.)
+__device__ __forceinline__ void apply_rhs(const InvApply<float>& ap, int s,
+                                          int t, int n, const float* ys,
+                                          float* rhs) {
+  const bool lvec = mat_vec4(ap.L);
+  for (int c = 0; c < ap.r; ++c) {
+    for (int i = t; i < kBlock; i += n) {
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 8
+      for (int j = 0; j < ap.K; j += 4) {
+        const float4 l = row4(ap.L.at(s, i, j), lvec);
+        float yv[4];
+        load4(ys + c * kBlock + j, yv);
+        acc[0] = fmaf(l.x, yv[0], acc[0]);
+        acc[1] = fmaf(l.y, yv[1], acc[1]);
+        acc[2] = fmaf(l.z, yv[2], acc[2]);
+        acc[3] = fmaf(l.w, yv[3], acc[3]);
+      }
+      rhs[c * kBlock + i] =
+          *ap.R.at(s, i, c) - ((acc[0] + acc[1]) + (acc[2] + acc[3]));
+    }
+  }
+}
+
+template <bool kApply>
+__device__ __forceinline__ void invert_block_f32(Mat<float> D, int B,
+                                                 unsigned char* smem,
+                                                 InvApply<float> ap) {
+  using C = Inv<float>;
+  constexpr int kLdP = C::kLdP, kGjWarps = C::kGjWarps;
+  float* sm = reinterpret_cast<float*>(smem);
+  float* rowp = sm + C::kRowp;
+  float* rown = sm + C::kRown;
+  float* dpt = sm + C::kDp;  // Dp column by column: Dp[i][k] at k·kLdP + i
+  float* colx = sm + C::kColx;
+  float* rhs = sm + C::kRhs;  // [c][128], kApply only
+  float* ys = sm + C::kY;     // [c][128], kApply only
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tr = tid >> 4, tc = tid & 15;
+  // Step 3's outputs: rown rows 4·rg .. + 3, columns 4·cg .. + 3.
+  const int rg = tr & 7, cg = tc + ((tid >> 7) << 4);
+  const bool vec = mat_vec4(D);
+
+  for (int s = blockIdx.x; s < B; s += gridDim.x) {
+    if constexpr (kApply) {  // y to shared memory beside the block's loads
+      for (int e = tid; e < ap.K * ap.r; e += 256) {
+        ys[e] = *ap.y.at(s, e % kBlock, e / kBlock);
+      }
+    }
+    float a[8][8];  // a[u][4h + v] = M[tr + 16u][64h + 4tc + v]
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float4 q = row4(D.at(s, tr + 16 * u, 64 * h + 4 * tc), vec);
+        a[u][4 * h] = q.x;
+        a[u][4 * h + 1] = q.y;
+        a[u][4 * h + 2] = q.z;
+        a[u][4 * h + 3] = q.w;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kBlock / kPanel; ++q) {  // P's rows: u = 2q, 2q + 1
+      const int p0 = q * kPanel;
+      float* colT = sm + C::kColT + (q & 1) * kPanel * kLdCol;
+      // The thread's columns in P (if any) are its half hq, from kc on.
+      const int hq = q >> 1;
+      const int kc = 4 * (tc & 7);
+      const bool my_cols = (tc >> 3) == (q & 1);
+      // 1. Panel columns and rows to shared memory.
+      if (my_cols) {
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+#pragma unroll
+          for (int u = 0; u < 8; u += 4) {
+            store4(colT + (kc + v) * kLdCol + 8 * tr + u, a[u][4 * hq + v],
+                   a[u + 1][4 * hq + v], a[u + 2][4 * hq + v],
+                   a[u + 3][4 * hq + v]);
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 2 * q; u < 2 * q + 2; ++u) {
+        const int i = tr + 16 * (u & 1);  // the row's place in P
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float w[4];
+#pragma unroll
+          for (int v = 0; v < 4; ++v) {
+            w[v] = my_cols && h == hq ? (i == kc + v ? 1.f : 0.f)
+                                      : a[u][4 * h + v];
+          }
+          store4(rowp + i * kBlock + 64 * h + 4 * tc, w[0], w[1], w[2], w[3]);
+        }
+      }
+      __syncthreads();
+      // 2. Dp = M_PP⁻¹ by the first kGjWarps warps, lane i holding row
+      //    p0 + i (at 8·(i % 16) + 2q + i / 16 in colT).
+      if (warp < kGjWarps) {
+        constexpr int kC = kPanel / kGjWarps;
+        const int ip = 8 * (lane & 15) + 2 * q + (lane >> 4);
+        float x[kC];
+#pragma unroll
+        for (int v = 0; v < kC; ++v) x[v] = colT[(kC * warp + v) * kLdCol + ip];
+        gauss_jordan_f32<kGjWarps>(x, warp, lane, colx);
+#pragma unroll
+        for (int v = 0; v < kC; ++v) dpt[(kC * warp + v) * kLdP + lane] = x[v];
+      } else if (kApply && q == 0) {
+        // Meanwhile the other warps form rhs = R − L·y.
+        apply_rhs(ap, s, tid - 32 * kGjWarps, C::kThreads - 32 * kGjWarps,
+                  ys, rhs);
+      }
+      __syncthreads();
+      // 3. rown = Dp·rowp.
+      {
+        float acc[4][4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+#pragma unroll
+          for (int v = 0; v < 4; ++v) acc[u][v] = 0.f;
+        }
+#pragma unroll 8
+        for (int k = 0; k < kPanel; ++k) {
+          float av[4], bv[4];
+          load4(dpt + k * kLdP + 4 * rg, av);
+          load4(rowp + k * kBlock + 4 * cg, bv);
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+#pragma unroll
+            for (int v = 0; v < 4; ++v) {
+              acc[u][v] = fmaf(av[u], bv[v], acc[u][v]);
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          store4(rown + (4 * rg + u) * kBlock + 4 * cg, acc[u][0], acc[u][1],
+                 acc[u][2], acc[u][3]);
+        }
+      }
+      __syncthreads();
+      // 4. The rank-32 update of the thread's six rows outside P (the
+      //    rows m[0..5] of its patch); its two rows in P take rown.
+      int m[6];
+#pragma unroll
+      for (int j = 0; j < 6; ++j) m[j] = j < 2 * q ? j : j + 2;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const bool zero = my_cols && h == hq;  // M_iP = 0 − M_iP·Dp
+        float acc[6][4];
+#pragma unroll
+        for (int j = 0; j < 6; ++j) {
+#pragma unroll
+          for (int v = 0; v < 4; ++v) acc[j][v] = 0.f;
+        }
+#pragma unroll 4
+        for (int k = 0; k < kPanel; ++k) {
+          // colT's values of rows m[0..5]: the four of one half and the
+          // pair of the other half outside P.
+          const float* ck = colT + k * kLdCol + 8 * tr;
+          float av[8], bv[4];
+          if (q < 2) {
+            load4(ck + 4, *reinterpret_cast<float(*)[4]>(av + 4));
+            load2(ck + 2 - 2 * q, av + 2 - 2 * q);
+          } else {
+            load4(ck, *reinterpret_cast<float(*)[4]>(av));
+            load2(ck + 10 - 2 * q, av + 10 - 2 * q);
+          }
+          load4(rown + k * kBlock + 64 * h + 4 * tc, bv);
+#pragma unroll
+          for (int j = 0; j < 6; ++j) {
+#pragma unroll
+            for (int v = 0; v < 4; ++v) {
+              acc[j][v] = fmaf(av[m[j]], bv[v], acc[j][v]);
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 6; ++j) {
+#pragma unroll
+          for (int v = 0; v < 4; ++v) {
+            a[m[j]][4 * h + v] = (zero ? 0.f : a[m[j]][4 * h + v]) - acc[j][v];
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 2 * q; u < 2 * q + 2; ++u) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float w[4];
+          load4(rown + (tr + 16 * (u & 1)) * kBlock + 64 * h + 4 * tc, w);
+#pragma unroll
+          for (int v = 0; v < 4; ++v) a[u][4 * h + v] = w[v];
+        }
+      }
+    }
+    if constexpr (kApply) {
+      // out = D⁻¹·rhs (rhs written before the panels' barriers).
+      for (int c = 0; c < ap.r; ++c) {
+        float rv[8];
+        load4(rhs + c * kBlock + 4 * tc, *reinterpret_cast<float(*)[4]>(rv));
+        load4(rhs + c * kBlock + 64 + 4 * tc,
+              *reinterpret_cast<float(*)[4]>(rv + 4));
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          float part = 0.f;
+#pragma unroll
+          for (int e = 0; e < 8; ++e) part += a[u][e] * rv[e];
+          part = half_warp_sum(part);
+          if (tc == 0) *ap.out.at(s, tr + 16 * u, c) = part;
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        set_row4(D.at(s, tr + 16 * u, 64 * h + 4 * tc),
+                 make_float4(a[u][4 * h], a[u][4 * h + 1], a[u][4 * h + 2],
+                             a[u][4 * h + 3]),
+                 vec);
+      }
+    }
+    __syncthreads();  // the shared buffers serve the next system
+  }
+}
+
+// D (the 128×128 block at D.at(s, 0, 0)) = D⁻¹; with kApply also the
+// InvApply work.
+template <typename T, bool kApply>
+__device__ __forceinline__ void invert_block(Mat<T> D, int B,
+                                             unsigned char* smem,
+                                             InvApply<T> ap) {
+  if constexpr (sizeof(T) == 4) {
+    invert_block_f32<kApply>(D, B, smem, ap);
+  } else {
+    invert_block_f64<kApply>(D, B, smem, ap);
+  }
+}
+
 // ---- host side -----------------------------------------------------------
 
 // The kernels of one source (DENSE_TILE_KERNELS), for one dtype.
@@ -827,7 +1157,7 @@ int prepare(const Kernels<T>& k) {
     if (err == cudaSuccess) {
       err = cudaFuncSetAttribute(inv,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 inv_smem_bytes<T>());
+                                 Inv<T>::kSmemBytes);
     }
   }
   return static_cast<int>(err);
@@ -879,7 +1209,7 @@ int invert(const Kernels<T>& k, Mat<T> D, int B, cudaStream_t stream,
   const cudaError_t err = cudaLaunchKernel(
       reinterpret_cast<const void*>(ap.r > 0 ? k.inv_apply : k.inv),
       dim3(static_cast<unsigned>(B < kMaxGridY ? B : kMaxGridY)),
-      dim3(Inv<T>::kThreads), args, inv_smem_bytes<T>(), stream);
+      dim3(Inv<T>::kThreads), args, Inv<T>::kSmemBytes, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,8 +13,10 @@ torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 
+import chip_smoke as cs  # noqa: E402  (the shapes and bounds the card checks)
 from nodal_tpu_torch import BatchedSolver, Circuit, Netlist  # noqa: E402
-from nodal_tpu_torch.ops.band import band_plan  # noqa: E402
+from nodal_tpu_torch.ops import block_lu, lu  # noqa: E402
+from nodal_tpu_torch.ops.band import band_plan, band_thomas_solve  # noqa: E402
 from nodal_tpu_torch.ops.block_thomas import (  # noqa: E402
     band_solve_multi, launch_plan)
 from nodal_tpu_torch.ops.sband import sband_solve_multi  # noqa: E402
@@ -24,6 +26,14 @@ from nodal_tpu_torch.utils.gridgen import (  # noqa: E402
     grid_rows, weighted_lattice_rows)
 
 pytestmark = pytest.mark.chip
+
+
+def _lattice_rows():
+    """The 20×10×10 unit-resistor lattice of ``lattice2k``."""
+    d, h, w = 20, 10, 10
+    return list(weighted_lattice_rows(
+        np.ones((d, h, w - 1)), np.ones((d, h - 1, w)),
+        np.ones((d - 1, h, w)), (0, 0, 0), (d - 1, h - 1, w - 1)))
 
 
 @pytest.fixture
@@ -69,12 +79,8 @@ def test_thomas_kernels_counted_a_host_loop(cuda):
     counter ``thomas_kernels`` and ``band_solve_multi.kernels`` both add
     ``launch_plan``'s kernels for every host loop, and each block-Thomas
     solve is a device-timed ``thomas.solve`` span."""
-    d, h, w = 20, 10, 10
-    rows = list(weighted_lattice_rows(
-        np.ones((d, h, w - 1)), np.ones((d, h - 1, w)),
-        np.ones((d - 1, h, w)), (0, 0, 0), (d - 1, h - 1, w - 1)))
-    circuit = Circuit(Netlist.from_rows(rows + [["src", "A", "1", "1",
-                                                 "g"]]))
+    circuit = Circuit(Netlist.from_rows(_lattice_rows()
+                                        + [["src", "A", "1", "1", "g"]]))
     solver = BatchedSolver(circuit, device=cuda)
     assert solver.method == "band"
     params = np.tile(circuit.stamps.params, (64, 1))
@@ -95,3 +101,85 @@ def test_thomas_kernels_counted_a_host_loop(cuda):
     spans = call.find("thomas.solve")
     assert len(spans) == loops
     assert all(s.device_ms > 0 for s in spans)
+
+
+# --- the f32 128×128 inverse (csrc/dense_tile.cuh, invert_block_f32) on every
+# route that reaches it, each against the plain version on the same CUDA
+# tensors.  The kernel eliminates without pivoting, the plain versions pivot
+# inside each block or invert it by torch.linalg; on these diagonally
+# dominant bands and grounded Laplacians both are backward-stable, so they
+# differ by rounding: chip_smoke's bounds, which hold the kernels to the
+# unit roundoff times modest growth (BAND_RTOL, LU_RTOL: 1e-4 in f32, about
+# two orders above the differences seen) or, on the Laplacians, to
+# LU_KAPPA_FACTOR·κ₁·ε.
+
+@pytest.mark.parametrize("shape", [
+    (cs.GENERAL_BATCH, 16, 128, 1),   # lattice2k.mc1k: the r <= 4 launch
+    (7, 16, 128, 5),                  # r > 4: the plain inverse launch
+    (3, 16, 128, 64),                 # equiv_many's 64 probe pairs
+    (1, 16, 128, 1), (1, 79, 128, 1),  # B = 1: one block a launch
+    (7, 4, 256, 3), (7, 3, 384, 1),    # kb > 128: inside lu_factor
+], ids=lambda s: "x".join(map(str, s)))
+def test_block_thomas_f32_inverse_routes(cuda, shape):
+    """Block Thomas in f32 at every shape class whose Schur blocks the f32
+    inverse takes, against ``band_thomas_solve`` on the card."""
+    B, nb, kb, r = shape
+    gen = torch.Generator(device=cuda).manual_seed(24)
+    W, R = cs.random_block_band(B, nb, kb, r, torch.float32, gen)
+    got = band_solve_multi(W, R)
+    want = band_thomas_solve(W, R)
+    torch.cuda.synchronize(cuda)
+    assert bool(torch.isfinite(got).all())
+    assert cs.rel_diff(got.reshape(B, -1), want.reshape(B, -1)) <= \
+        cs.BAND_RTOL[torch.float32]
+
+
+def test_block_lu_f32_inverse_at_randnet(cuda):
+    """The blocked LU in f32 at the ``randnet`` shape (1024 grounded random
+    networks of 1000 nodes padded to 1024), whose eight diagonal blocks a
+    system the f32 inverse takes, against the plain blocked LU."""
+    gen = torch.Generator(device=cuda).manual_seed(24)
+    A, R = cs.random_laplacian(cs.GENERAL_BATCH, 1024, 1, torch.float32, gen)
+    tol = cs.lu_check_tol(A, "laplacian")["tol"]
+    want = block_lu.blocked_solve_factored(block_lu.blocked_factor(A), R)
+    got = lu.lu_solve_multi(A, R)
+    torch.cuda.synchronize(cuda)
+    assert bool(torch.isfinite(got).all())
+    assert cs.rel_diff(got.reshape(A.shape[0], -1),
+                       want.reshape(A.shape[0], -1)) <= tol
+
+
+def test_f32_inverse_of_lattice_schur_blocks(cuda):
+    """The inverse alone (``lu_factor`` of one 128×128 panel is one inverse
+    launch) on the grounded-Laplacian Schur blocks S_t = D_t − L_t·S_{t−1}⁻¹
+    ·U_{t−1} of the 20×10×10 lattice's own band, 5 % conductance spread,
+    against ``torch.linalg.inv`` in f64: within LU_KAPPA_FACTOR·κ₁·ε of
+    max|S⁻¹| (κ₁ of each block), and bit for bit the same on a repeat."""
+    circuit = Circuit(Netlist.from_rows(_lattice_rows()
+                                        + [["src", "A", "1", "1", "g"]]))
+    stamps = circuit.stamps
+    plan = band_plan(stamps)
+    assert plan is not None and plan.kb == 128
+    gen = torch.Generator(device=cuda).manual_seed(24)
+    base = torch.as_tensor(stamps.params, dtype=torch.float64, device=cuda)
+    params = base * (1.0 + 0.05 * torch.randn(
+        (64, len(base)), generator=gen, dtype=torch.float64, device=cuda))
+    W, _ = plan.assemble(stamps, params)
+    kb = plan.kb
+    S, blocks = W[:, 0, :, kb:2 * kb], []
+    for t in range(plan.nb):
+        if t:
+            C = torch.linalg.solve(S, W[:, t - 1, :, 2 * kb:])
+            S = W[:, t, :, kb:2 * kb] - W[:, t, :, :kb] @ C
+        blocks.append(S)
+    S64 = torch.cat(blocks)
+    want = torch.linalg.inv(S64)
+    got = lu.lu_factor(S64.float().contiguous())
+    again = lu.lu_factor(S64.float().contiguous())
+    torch.cuda.synchronize(cuda)
+    assert torch.equal(got, again)
+    kappa = torch.linalg.cond(S64, p=1)
+    eps = torch.finfo(torch.float32).eps / 2
+    err = ((got.double() - want).abs().amax((1, 2))
+           / want.abs().amax((1, 2)))
+    assert bool((err <= cs.LU_KAPPA_FACTOR * kappa * eps).all())
