@@ -38,6 +38,7 @@ import dataclasses
 import functools
 import logging
 import math
+from collections.abc import Callable
 
 import numpy as np
 import torch
@@ -52,8 +53,7 @@ from nodal_tpu_torch.ops.band import band_plan, node_band_plan
 from nodal_tpu_torch.ops.block_lu import _BLOCK, schur_eliminate
 from nodal_tpu_torch.ops.block_thomas import (MAX_R, band_solve,
                                               band_solve_multi)
-from nodal_tpu_torch.ops.lu import (lu_factor, lu_solve_factored,
-                                    lu_solve_multi)
+from nodal_tpu_torch.ops.lu import lu_factor, lu_solve_factored
 from nodal_tpu_torch.ops.pcr import pcr_solve
 from nodal_tpu_torch.ops.sband import (sband_fits, sband_solve,
                                        sband_solve_multi)
@@ -61,7 +61,6 @@ from nodal_tpu_torch.ops.scalar_band import (MAX_W, node_sband_plan,
                                              sband_plan)
 from nodal_tpu_torch.ops.sparse_schur import (
     general_auto_viable, general_sparse_adjoint_gradient)
-from nodal_tpu_torch.ops.tridiag import tridiag_matvec
 from nodal_tpu_torch.utils import tracing
 from nodal_tpu_torch.utils.device import resolve_device
 
@@ -198,41 +197,79 @@ def _coo_residuals(stamps: StampTensors, params_batch: torch.Tensor,
     return (b - y).abs().amax(dim=1) / b.abs().amax(dim=1).clamp_min(1.0)
 
 
-def _coo_defect_refine(stamps: StampTensors, params_batch: torch.Tensor,
-                       rhs, x: torch.Tensor, resolve,
-                       iters: int = 2) -> torch.Tensor:
-    """f64 defect correction against the *exact* COO operator.
+@dataclasses.dataclass(frozen=True)
+class _Operator:
+    """A batched tier in prepared form, in one working dtype.
 
-    ``x`` is the f32-tier solution (promoted to f64); ``rhs`` is an
-    explicit natural-order RHS or None for the stamped one; ``resolve``
-    maps an f32 natural-order residual to an f32 correction.  Refining
-    against the COO entries rather than the assembled, f32-rounded matrix
-    is what buys true f64 accuracy instead of a floor set by assembly
-    rounding.
+    ``prepare(pb) -> resolve(rhs=None)`` assembles (and factors) the
+    systems of a params batch once; ``resolve`` solves them for the
+    stamped right-hand side (``rhs=None``) or a given natural-order one,
+    [B, n] -> [B, n], as often as asked.  ``prepare_t`` is the same for
+    the transposed systems (``prepare`` itself for the symmetric resistive
+    tiers).  ``passes`` is the fixed number of defect passes that
+    ``refine=True`` takes on this tier.
     """
-    g_vals, rhs_vals = stamp_values(stamps, params_batch.to(torch.float64))
-    x = x.to(torch.float64)
-    if rhs is None:
-        b64 = _coo_rhs_vec(stamps, rhs_vals, x)
-    else:
-        b64 = rhs.to(torch.float64)
-    for _ in range(iters):
-        r = b64 - _coo_apply(stamps, g_vals, x)
-        x = x + resolve(r.to(torch.float32)).to(torch.float64)
-    return x
+
+    prepare: Callable
+    prepare_t: Callable
+    passes: int
 
 
-def _escalating_solver(stamps: StampTensors, inner, transpose: bool = False):
-    """The ``refine="auto"`` tier: f32 solves + exact-f64-COO defect
+class _DefectPass:
+    """Exact-f64 defect correction against the COO operator, for one run.
+
+    The f64 stamp values and ``b64`` (the given natural-order RHS, or the
+    stamped one) are formed once.  A call is one pass with the f32 solve
+    ``resolve``: ``dx = resolve(b64 − G·x)``, returning ``(x + dx, dx)``.
+    Refining against the COO entries rather than the assembled,
+    f32-rounded matrix is what buys true f64 accuracy instead of a floor
+    set by assembly rounding.
+    """
+
+    def __init__(self, stamps: StampTensors, params_batch: torch.Tensor,
+                 rhs, x: torch.Tensor):
+        self.stamps = stamps
+        self.g_vals, rhs_vals = stamp_values(stamps,
+                                             params_batch.to(torch.float64))
+        self.b64 = (_coo_rhs_vec(stamps, rhs_vals, x) if rhs is None
+                    else rhs.to(torch.float64))
+
+    def residual(self, x: torch.Tensor) -> torch.Tensor:
+        return self.b64 - _coo_apply(self.stamps, self.g_vals, x)
+
+    def __call__(self, x: torch.Tensor, resolve):
+        tracing.count("contract_passes")
+        dx = resolve(self.residual(x).to(torch.float32)).to(torch.float64)
+        return x + dx, dx
+
+
+def _refined_solver(stamps: StampTensors, prepare, passes: int,
+                    transpose: bool = False):
+    """The ``refine=True`` policy: the f32 operator ``prepare`` prepared
+    once a run, its solve, then ``passes`` defect passes on it; f64 out."""
+    st = _transposed_stamps(stamps) if transpose else stamps
+
+    def solve_batch(params_batch, rhs=None):
+        resolve = prepare(params_batch)
+        x = resolve(rhs).to(torch.float64)
+        defect = _DefectPass(st, params_batch, rhs, x)
+        for _ in range(passes):
+            x, _ = defect(x, resolve)
+        return x
+
+    return solve_batch
+
+
+def _escalating_solver(stamps: StampTensors, prepare,
+                       transpose: bool = False):
+    """The ``refine="auto"`` policy: f32 solves + exact-f64-COO defect
     correction until a correction-based ERROR estimate meets the 1e-6
     contract.
 
-    ``inner(pb, rhs=None)`` is the tier's raw f32 solve (``rhs`` in natural
-    order; for ``transpose=True`` it solves the transposed system and
-    ``rhs`` is required).  Where ``inner`` has a prepared form,
-    ``inner.prepare(pb) -> resolve(rhs=None)``, the operator is prepared
-    once a run and every pass reuses it; otherwise each solve is a call
-    of ``inner``.
+    ``prepare(pb) -> resolve(rhs=None)`` is the tier's f32 operator (the
+    transposed one for ``transpose=True``, whose callers always give
+    ``rhs``, in natural order).  It is prepared once a run, and every
+    pass solves on it.
 
     Why error, not residual: the f32 solves are backward-stable, so their
     residual sits at ~ε₃₂ whatever the conditioning while the error is
@@ -253,33 +290,27 @@ def _escalating_solver(stamps: StampTensors, inner, transpose: bool = False):
 
     def _run(params_batch, rhs):
         with tracing.span("tier.solve", params_batch):
-            prepare = getattr(inner, "prepare", None)
-            resolve = (functools.partial(inner, params_batch)
-                       if prepare is None else prepare(params_batch))
+            resolve = prepare(params_batch)
             x = resolve(rhs)
         x = x.to(torch.float64)
-        g_vals, rhs_vals = stamp_values(st, params_batch.to(torch.float64))
-        if rhs is None:
-            b64 = _coo_rhs_vec(st, rhs_vals, x)
-        else:
-            b64 = rhs.to(torch.float64)
-        b_scale = b64.abs().amax(dim=1).clamp_min(1.0)
+        defect = _DefectPass(st, params_batch, rhs, x)
+        b_scale = defect.b64.abs().amax(dim=1).clamp_min(1.0)
+
+        def solve(r):
+            with tracing.span("tier.solve", params_batch):
+                return resolve(r)
 
         def correct(x):
             """One defect pass: (x+dx, dx_rel), dx_rel the worst
             per-sample ‖dx‖∞/‖x‖∞ — the error estimate of x."""
-            tracing.count("contract_passes")
             with tracing.span("contract.pass"):
-                r = b64 - _coo_apply(st, g_vals, x)
-                with tracing.span("tier.solve", params_batch):
-                    dx = resolve(r.to(torch.float32))
-                dx = dx.to(torch.float64)
+                x_next, dx = defect(x, solve)
                 x_scale = x.abs().amax(dim=1).clamp_min(1e-30)
                 # The loop condition reads this scalar on the host: one
                 # device synchronisation per pass.
                 tracing.count("host_syncs")
                 dx_rel = float((dx.abs().amax(dim=1) / x_scale).max())
-            return x + dx, dx_rel
+            return x_next, dx_rel
 
         # Pass 1, unconditional: dx₁ estimates the raw solve's error, which
         # for a single solve is the contraction factor ρ.
@@ -298,57 +329,82 @@ def _escalating_solver(stamps: StampTensors, inner, transpose: bool = False):
 
         if stamps.n > _ESCALATE_DENSE_MAX_N:
             return x
-        r = b64 - _coo_apply(st, g_vals, x)
-        rel_s = r.abs().amax(dim=1) / b_scale
+        rel_s = defect.residual(x).abs().amax(dim=1) / b_scale
         bad = (rel_s > _CONTRACT_TOL) | ~torch.isfinite(rel_s)
         # Host synchronisation: which samples take the pivoted rescue.
         tracing.count("host_syncs")
         idx = torch.nonzero(bad).flatten()
         tracing.count("rescued_samples", idx.numel())
         if idx.numel():
-            core = make_dense_core(stamps, torch.float64)
+            rescue = _dense_operator(stamps, torch.float64)
+            rescue = rescue.prepare_t if transpose else rescue.prepare
             chunk = max(1, _ESCALATE_CHUNK_BYTES // (stamps.n * stamps.n * 8))
             for lo in range(0, idx.numel(), chunk):
                 sel = idx[lo:lo + chunk]
-                x[sel] = core(params_batch[sel],
-                              None if rhs is None else rhs[sel], transpose)
+                x[sel] = rescue(params_batch[sel])(
+                    None if rhs is None else rhs[sel])
         return x
 
     return run
 
 
-def make_dense_core(stamps: StampTensors, dtype, refine: bool = False):
-    """``core(pb, rhs=None, transpose=False)``: the dense pivoted-LU MNA
-    solve, the ``dense`` tier and (f64, no ``refine``) the contract layer's
-    rescue.
+def _contract_layer(stamps: StampTensors, build, dtype, refine):
+    """The precision policy, the one reader of ``refine``:
+    ``(operator, solve_batch, solve_rhs_t)`` for the tier whose
+    :class:`_Operator` ``build(working_dtype)`` builds.
 
-    Raw: assembly and ``torch.linalg.solve`` in ``dtype``.  ``refine``: the
-    matrices cast to f32, an f32 pivoted solve, then three exact-COO f64
-    defect passes on the same f32 matrices, f64 out (the JAX package's
-    variant).  The factorization
-    is the library's pivoted LU, as XLA's is in the JAX package: no TPU
-    kernel of the repo computes it, so this is no kernel port.
+    * Raw (``refine=False``, or ``"auto"`` with f64): the operator in
+      ``dtype``, prepared and solved once a call.
+    * ``refine=True``: the f32 operator and the tier's fixed number of
+      exact-f64 defect passes (:func:`_refined_solver`); f64 out.
+    * ``refine="auto"`` with f32: the f32 operator in the escalating
+      contract layer (:func:`_escalating_solver`); f64 out.
+
+    ``solve_batch(pb, rhs=None)`` solves G x = b (or the given
+    natural-order RHS), ``solve_rhs_t(pb, rhs)`` the transposed system.
+    """
+    if not refine or (refine == "auto" and dtype != torch.float32):
+        op = build(dtype)
+        return (op, lambda pb, rhs=None: op.prepare(pb)(rhs),
+                lambda pb, rhs: op.prepare_t(pb)(rhs))
+    op = build(torch.float32)
+    if refine == "auto":
+        return (op, _escalating_solver(stamps, op.prepare),
+                _escalating_solver(stamps, op.prepare_t, transpose=True))
+    return (op, _refined_solver(stamps, op.prepare, op.passes),
+            _refined_solver(stamps, op.prepare_t, op.passes,
+                            transpose=True))
+
+
+def _dense_operator(stamps: StampTensors, dtype) -> _Operator:
+    """The dense pivoted-LU MNA solve: the ``dense`` tier and (f64) the
+    contract layer's rescue.
+
+    ``prepare`` assembles G and b once, at the wider of the params' dtype
+    and ``dtype``, then rounds them to ``dtype`` (the JAX package's
+    variant: an f64 solver with ``refine=True`` rounds its f64 matrices to
+    f32); ``resolve`` is ``torch.linalg.solve`` on them.  The
+    factorization is the library's pivoted LU, as XLA's is in the JAX
+    package: no TPU kernel of the repo computes it, so this is no kernel
+    port.
     """
 
-    def core(params_batch, rhs=None, transpose=False):
-        G, b = assemble_dense(stamps, params_batch, dtype=dtype)
-        if rhs is not None:
-            b = rhs.to(b.dtype)
+    def prepare(params_batch, transpose=False):
+        G, b = assemble_dense(
+            stamps, params_batch,
+            dtype=torch.promote_types(params_batch.dtype, dtype))
         if transpose:
             G = G.transpose(1, 2)
-        if refine:
-            G, b = G.to(torch.float32), b.to(torch.float32)
+        G, b = G.to(dtype), b.to(dtype)
 
-        def resolve(r):
+        def resolve(rhs=None):
+            r = b if rhs is None else rhs.to(dtype)
             return dense_solve.solve_dense(G, r.unsqueeze(-1)).squeeze(-1)
 
-        if not refine:
-            return resolve(b)
-        st = _transposed_stamps(stamps) if transpose else stamps
-        return _coo_defect_refine(st, params_batch, rhs, resolve(b),
-                                  resolve, iters=3)
+        return resolve
 
-    return core
+    return _Operator(prepare, functools.partial(prepare, transpose=True),
+                     passes=3)
 
 
 class _AdjointSolve(torch.autograd.Function):
@@ -432,50 +488,41 @@ def _stamps_of(circuit_or_stamps) -> StampTensors:
     return stamps
 
 
-def _refined_tridiag_solver(stamps: StampTensors, iters: int = 2):
-    """Band-space mixed precision: f32 PCR solves, f64 band residuals.
+def _tridiag_operator(stamps: StampTensors, dtype) -> _Operator:
+    """The ``tridiag`` tier: the three bands assembled once
+    (:func:`assemble_tridiag`), then parallel cyclic reduction on them
+    (:func:`pcr_solve`: the CUDA kernel on the card, the plain torch PCR
+    for CPU tensors), which does not write its bands."""
 
-    The returned callable also accepts an optional explicit RHS (natural
-    order, [B, n]) replacing the stamped one.
+    def prepare(params_batch):
+        dl, d, du, b = assemble_tridiag(stamps, params_batch, dtype=dtype)
+
+        def resolve(rhs=None):
+            rb = b if rhs is None else rhs.to(dtype).contiguous()
+            return pcr_solve(dl, d, du, rb)
+
+        return resolve
+
+    # Resistive ⇒ symmetric operator: the transposed solve is the same
+    # solve with the given RHS.
+    return _Operator(prepare, prepare, passes=2)
+
+
+def _band_operator(stamps: StampTensors, plan, solve, dtype) -> _Operator:
+    """A banded resistive tier: ``band`` (a
+    :class:`~nodal_tpu_torch.ops.band.BandPlan` and ``band_solve``, the
+    block-Thomas kernel) or ``sband`` (a scalar-band plan and
+    ``sband_solve``).
+
+    ``prepare`` assembles the band once; ``resolve`` runs the kernel on
+    it (f64 runs the kernel's f64 instantiation on the card).  Neither
+    kernel writes its band.  Under the f64 defect passes the band is
+    never materialised in f64: they read the stamp entries (O(B·nnz))
+    instead of an f64 copy of the band, which would be the largest tensor
+    of the call.
     """
 
-    def solve_batch(params_batch, rhs=None):
-        dl, d, du, b = assemble_tridiag(stamps, params_batch,
-                                        dtype=torch.float64)
-        if rhs is not None:
-            b = rhs.to(torch.float64).contiguous()
-        dl32, d32, du32 = (t.to(torch.float32) for t in (dl, d, du))
-        x = pcr_solve(dl32, d32, du32, b.to(torch.float32)).to(torch.float64)
-        for _ in range(iters):
-            r = b - tridiag_matvec(dl, d, du, x)
-            dx = pcr_solve(dl32, d32, du32, r.to(torch.float32))
-            x = x + dx.to(torch.float64)
-        return x
-
-    return solve_batch
-
-
-def _band_solver(stamps: StampTensors, plan, dtype, refine: bool, solve):
-    """The solve ``(pb, rhs=None) -> [B, n]`` of a banded resistive tier:
-    ``band`` (a :class:`~nodal_tpu_torch.ops.band.BandPlan` and
-    ``band_solve``, the block-Thomas kernel) or ``sband`` (a scalar-band
-    plan and ``sband_solve``).
-
-    Raw: assembly and the kernel in ``dtype`` (f64 runs the kernel's f64
-    instantiation on the card).  ``refine``: the band assembled in f32
-    only, f32 kernel solves, and two exact-COO f64 defect passes, f64 out.
-    The band is never materialised in f64: the passes read the stamp
-    entries (O(B·nnz)) instead of an f64 copy of the band, which would be
-    the largest tensor of the call.
-
-    The raw solve has a prepared form, ``solve_batch.prepare(pb) ->
-    resolve(rhs=None)``: the band assembled once, then any number of
-    solves on it (``rhs=None`` solves the stamped right-hand side).  The
-    contract layer reuses it across its defect passes; neither kernel
-    writes its band.
-    """
-
-    def prepare(params_batch, dtype=dtype):
+    def prepare(params_batch):
         with tracing.span("band.assemble", params_batch):
             W, b = plan.assemble(stamps, params_batch, dtype=dtype)
             tracing.count("band_assemblies")
@@ -486,56 +533,34 @@ def _band_solver(stamps: StampTensors, plan, dtype, refine: bool, solve):
 
         return resolve
 
-    if not refine:
-
-        def solve_batch(params_batch, rhs=None):
-            return prepare(params_batch)(rhs)
-
-        solve_batch.prepare = prepare
-        return solve_batch
-
-    def solve_batch(params_batch, rhs=None):
-        resolve = prepare(params_batch, torch.float32)
-        return _coo_defect_refine(stamps, params_batch, rhs, resolve(rhs),
-                                  resolve)
-
-    return solve_batch
+    return _Operator(prepare, prepare, passes=2)  # symmetric
 
 
-def _block_solver(stamps: StampTensors, dtype, refine: bool):
-    """The solve ``(pb, rhs=None) -> [B, n]`` of the ``block`` tier: dense
-    assembly straight into the 128-padded shape, then the no-pivot blocked
-    LU (:func:`lu_factor` and :func:`lu_solve_factored`: the CUDA kernel on
-    the card, the plain ``blocked_factor`` / ``blocked_solve_factored`` on
-    the CPU), then the first n unknowns.
-
-    Raw: assembly and the LU in ``dtype`` (f64 runs the kernel's f64
-    instantiation on the card).  ``refine``: f32 assembly, one f32
-    factorization, and two exact-COO f64 defect passes, each a solve on
-    the same factor; f64 out.
+def _block_operator(stamps: StampTensors, dtype) -> _Operator:
+    """The ``block`` tier: dense assembly straight into the 128-padded
+    shape and the no-pivot blocked LU factorization (:func:`lu_factor`),
+    once; each solve is :func:`lu_solve_factored` on the factor, then the
+    first n unknowns.  The CUDA kernel on the card (f64 runs its f64
+    instantiation), the plain ``blocked_factor`` /
+    ``blocked_solve_factored`` on the CPU.
     """
     n = stamps.n
     n_pad = -(-n // _BLOCK) * _BLOCK
 
-    def rhs_cols(v):  # [B, n] -> [B, n_pad, 1]
-        return torch.nn.functional.pad(v, (0, n_pad - n)).unsqueeze(-1)
-
-    def solve_batch(params_batch, rhs=None):
-        G, b = assemble_dense(stamps, params_batch,
-                              dtype=torch.float32 if refine else dtype,
+    def prepare(params_batch):
+        G, b = assemble_dense(stamps, params_batch, dtype=dtype,
                               pad_to=n_pad)
-        if rhs is not None:
-            b = rhs_cols(rhs.to(G.dtype))[..., 0]
         F = lu_factor(G)
         del G  # on the card F is G, factored in place
-        x = lu_solve_factored(F, b.unsqueeze(-1))[:, :n, 0]
-        if not refine:
-            return x
-        return _coo_defect_refine(
-            stamps, params_batch, rhs, x,
-            lambda r: lu_solve_factored(F, rhs_cols(r))[:, :n, 0])
 
-    return solve_batch
+        def resolve(rhs=None):
+            R = b.unsqueeze(-1) if rhs is None else torch.nn.functional.pad(
+                rhs.to(dtype), (0, n_pad - n)).unsqueeze(-1)
+            return lu_solve_factored(F, R)[:, :n, 0]
+
+        return resolve
+
+    return _Operator(prepare, prepare, passes=2)  # symmetric
 
 
 def _schur_supported(stamps: StampTensors) -> bool:
@@ -712,36 +737,82 @@ def _schur_block_assembler(stamps: StampTensors, dtype, nk_pad: int):
     return blocks
 
 
-def _make_schur_solver(assemble, multi_solve, nplan, nk: int, kbe: int):
-    """(solve_batch, solve_rhs_t) of the schur tier's sub-branches.
+def _schur_operator(stamps: StampTensors, dtype) -> _Operator:
+    """The ``schur`` tier.
 
-    ``assemble`` gives the node block in ``nplan``'s layout (a band, or the
-    dense padded block of :class:`_PaddedPlan`) with the border blocks in
-    the same row order; ``multi_solve`` is the node block's multi-RHS
-    solve (the scalar-band, block-Thomas or blocked-LU kernel).
-    ``solve_batch(pb, rhs=None)`` solves G x = b (or the given
-    natural-order RHS); ``solve_rhs_t(pb, rhs)`` solves the transposed
-    system Gᵀλ = rhs.  The node block A is symmetric (SPD, the Schur
-    precondition), so transposition only swaps the border blocks B ↔ Cᵀ
-    and D → Dᵀ; the same solve Y = A⁻¹[B | bk] and Schur algebra
+    The sub-branches, in the JAX package's order:
+
+    * The narrow node block: a scalar-band plan whose W1 band slots
+      plus the kbe + 1 border and RHS columns fit the scalar-band
+      kernel.
+    * The bandable node block: a block-band plan with nb ≥ 2 and
+      (kb = 128 or nk > 1024), and kbe + 1 ≤ 128 right-hand sides.
+    * The band scan: a block-band plan with nb ≥ 2 and nk > 2048, any
+      number of right-hand sides (the block-Thomas wrapper launches
+      once per 128 of them).
+    * Any other node block: dense, 128-padded, factored by the blocked
+      LU (:func:`lu_factor`, then :func:`lu_solve_factored` with kbe + 1
+      right-hand sides, any kbe: the CUDA kernel on the card; on the CPU
+      the plain ``blocked_factor`` and ``blocked_solve_factored``, which
+      is ``schur_solve``'s arithmetic).  One sub-branch takes the place of
+      the JAX package's Pallas LU multi (TPU, kbe < 128, nk ≤ 1024) and
+      dense ``schur_solve`` ones.
+
+    The middle two run the block-Thomas kernel on the card (the plain
+    solver on the CPU).  ``refine=True`` takes two defect passes on the
+    banded node blocks and three on the dense one, as the JAX package's
+    sub-branches take.  (On the CPU the JAX package takes its dense
+    sub-branch for node blocks up to 2048 nodes and a direct f64 band
+    scan for ``refine=True``; the tier is the same.)
+
+    ``prepare`` assembles the node block in its plan's layout (a band, or
+    the dense padded block of :class:`_PaddedPlan`) with the border
+    blocks in the same row order, and factors a dense one.  ``resolve``
+    solves Y = A⁻¹[B | rk] and the Schur algebra
     (:func:`schur_eliminate`, which assumes PyTorch's default of no TF32
-    in float32 matmuls) run unchanged.
+    in float32 matmuls).  The node block A is symmetric (SPD, the Schur
+    precondition), so the transposed system only swaps the border blocks
+    B ↔ Cᵀ and D → Dᵀ.
     """
+    nk = stamps.n_kcl
+    kbe = stamps.n - nk
+    factor = None
+    nsplan = node_sband_plan(stamps)
+    if nsplan is not None and sband_fits(nsplan.W1, kbe + 1):
+        plan, multi_solve, passes = nsplan, sband_solve_multi, 2
+        assemble = _schur_band_assembler(stamps, dtype, plan)
+    elif (nplan := node_band_plan(stamps)) is not None \
+            and nplan.nb >= 2 and (
+            (nplan.kb == 128 or nk > 1024) and kbe + 1 <= MAX_R
+            or nk > 2048):
+        plan, multi_solve, passes = nplan, band_solve_multi, 2
+        assemble = _schur_band_assembler(stamps, dtype, plan)
+    else:
+        plan = _PaddedPlan(nk, -(-nk // _BLOCK) * _BLOCK)
+        factor, multi_solve, passes = lu_factor, lu_solve_factored, 3
+        assemble = _schur_block_assembler(stamps, dtype, plan.n_pad)
 
-    def core(params_batch, rhs=None, transpose=False):
+    def prepare(params_batch, transpose=False):
         W, Bm, C, D, bk, bb = assemble(params_batch)
-        if rhs is None:
-            rk, rb = bk, bb
-        else:
-            rk = nplan.rhs_to_band(rhs, W.dtype)
-            rb = rhs[:, nk:].to(W.dtype)
+        if factor is not None:
+            W = factor(W)  # on the card the factor is W, factored in place
         if transpose:
             Bm, C, D = C.transpose(1, 2), Bm.transpose(1, 2), D.transpose(1, 2)
-        R = torch.cat([Bm, rk.unsqueeze(-1)], dim=-1).contiguous()
-        xk, xb = schur_eliminate(multi_solve(W, R), C, D, rb, kbe)
-        return torch.cat([nplan.unpermute(xk), xb], dim=-1)
 
-    return core, (lambda pb, rhs: core(pb, rhs, transpose=True))
+        def resolve(rhs=None):
+            if rhs is None:
+                rk, rb = bk, bb
+            else:
+                rk = plan.rhs_to_band(rhs, dtype)
+                rb = rhs[:, nk:].to(dtype)
+            R = torch.cat([Bm, rk.unsqueeze(-1)], dim=-1).contiguous()
+            xk, xb = schur_eliminate(multi_solve(W, R), C, D, rb, kbe)
+            return torch.cat([plan.unpermute(xk), xb], dim=-1)
+
+        return resolve
+
+    return _Operator(prepare, functools.partial(prepare, transpose=True),
+                     passes)
 
 
 class BatchedSolver:
@@ -779,9 +850,10 @@ class BatchedSolver:
         circuit: the compiled circuit, or bare :class:`StampTensors`.
         dtype: ``torch.float32`` (default) or ``torch.float64``.
         refine: ``"auto"`` (default, with f32) wraps the raw tier in the
-            exact-f64 contract layer and returns f64; ``True`` adds two
-            f64 refinement passes over f32 solves (f64 output); ``False``
-            is the raw tier in ``dtype``.
+            exact-f64 contract layer and returns f64; ``True`` adds the
+            tier's fixed number of f64 defect passes over f32 solves (two;
+            three on ``dense`` and ``schur``'s dense node block; f64
+            output); ``False`` is the raw tier in ``dtype``.
         method: override the structure-based choice.
         device: where every tensor of a solve lives; default ``"cuda"``.
     """
@@ -802,12 +874,6 @@ class BatchedSolver:
         self.device = resolve_device(device)
         self.dtype = dtype
         self.refine = refine
-        # refine="auto" (the default): build the raw f32 tier and wrap it
-        # in the escalating contract layer at _finalize.  refine=False:
-        # raw tier, no audit.
-        self._auto_escalate = refine == "auto" and dtype == torch.float32
-        if refine == "auto":
-            refine = False
 
         if method not in _METHODS:
             raise ValueError(
@@ -885,114 +951,32 @@ class BatchedSolver:
         self.method = method
 
         if method == "tridiag":
-            if refine:
-                solve_batch = _refined_tridiag_solver(stamps)
-            else:
-
-                def solve_batch(params_batch, rhs=None):
-                    dl, d, du, b = assemble_tridiag(stamps, params_batch,
-                                                    dtype=dtype)
-                    if rhs is not None:
-                        b = rhs.to(dtype).contiguous()
-                    return pcr_solve(dl, d, du, b)
-
-            # Resistive ⇒ symmetric operator: the transposed solve is the
-            # same solve with the given RHS.
-            self._finalize(solve_batch, solve_batch)
-        elif method in ("sband", "band"):
-            if method == "sband":
-                plan, solve = sband_plan(stamps), sband_solve
-            else:
-                plan, solve = band_plan(stamps), band_solve
-            solve_batch = _band_solver(stamps, plan, dtype, bool(refine),
-                                       solve)
-            self._finalize(solve_batch, solve_batch)  # symmetric
+            build = functools.partial(_tridiag_operator, stamps)
+        elif method == "sband":
+            build = functools.partial(_band_operator, stamps,
+                                      sband_plan(stamps), sband_solve)
+        elif method == "band":
+            build = functools.partial(_band_operator, stamps,
+                                      band_plan(stamps), band_solve)
         elif method == "block":
-            solve_batch = _block_solver(stamps, dtype, bool(refine))
-            self._finalize(solve_batch, solve_batch)  # symmetric
+            build = functools.partial(_block_operator, stamps)
         elif method == "schur":
-            self._finalize(*self._schur_solvers(dtype, bool(refine)))
+            build = functools.partial(_schur_operator, stamps)
         else:
-            core = make_dense_core(stamps, dtype, bool(refine))
-            self._finalize(core,
-                           lambda pb, rhs: core(pb, rhs, transpose=True))
+            build = functools.partial(_dense_operator, stamps)
+        self._finalize(build)
 
-    def _schur_solvers(self, dtype, refine: bool):
-        """(solve_batch, solve_rhs_t) of the ``schur`` tier.
-
-        The sub-branches, in the JAX package's order:
-
-        * The narrow node block: a scalar-band plan whose W1 band slots
-          plus the kbe + 1 border and RHS columns fit the scalar-band
-          kernel.
-        * The bandable node block: a block-band plan with nb ≥ 2 and
-          (kb = 128 or nk > 1024), and kbe + 1 ≤ 128 right-hand sides.
-        * The band scan: a block-band plan with nb ≥ 2 and nk > 2048, any
-          number of right-hand sides (the block-Thomas wrapper launches
-          once per 128 of them).
-        * Any other node block: dense, 128-padded, solved by the blocked
-          LU (the CUDA kernel on the card, with kbe + 1 right-hand sides,
-          any kbe; on the CPU the plain ``blocked_factor`` and
-          ``blocked_solve_factored``, which is ``schur_solve``'s
-          arithmetic).  One sub-branch takes the place of the JAX
-          package's Pallas LU multi (TPU, kbe < 128, nk ≤ 1024) and dense
-          ``schur_solve`` ones.
-
-        The middle two run the block-Thomas kernel on the card (the plain
-        solver on the CPU).  ``refine`` wraps both directions in
-        exact-COO f64 defect passes over f32 solves (f64 out): two on the
-        banded node blocks, three on the dense one, as the JAX package's
-        sub-branches take; otherwise the solve runs in ``dtype``.  (On the
-        CPU the JAX package takes its dense sub-branch for node blocks up
-        to 2048 nodes and a direct f64 band scan for ``refine=True``; the
-        tier is the same.)
-        """
-        stamps = self.stamps
-        nk = stamps.n_kcl
-        kbe = stamps.n - nk
-        sdtype = torch.float32 if refine else dtype
-        nsplan = node_sband_plan(stamps)
-        if nsplan is not None and sband_fits(nsplan.W1, kbe + 1):
-            plan, multi, iters = nsplan, sband_solve_multi, 2
-            assemble = _schur_band_assembler(stamps, sdtype, plan)
-        elif (nplan := node_band_plan(stamps)) is not None \
-                and nplan.nb >= 2 and (
-                (nplan.kb == 128 or nk > 1024) and kbe + 1 <= MAX_R
-                or nk > 2048):
-            plan, multi, iters = nplan, band_solve_multi, 2
-            assemble = _schur_band_assembler(stamps, sdtype, plan)
-        else:
-            plan = _PaddedPlan(nk, -(-nk // _BLOCK) * _BLOCK)
-            multi, iters = lu_solve_multi, 3
-            assemble = _schur_block_assembler(stamps, sdtype, plan.n_pad)
-        core_b, core_t = _make_schur_solver(assemble, multi, plan, nk, kbe)
-        if not refine:
-            return core_b, core_t
-        stamps_t = _transposed_stamps(stamps)
-
-        def solve_batch(pb, rhs=None):
-            return _coo_defect_refine(stamps, pb, rhs, core_b(pb, rhs),
-                                      lambda r: core_b(pb, r), iters)
-
-        def solve_rhs_t(pb, rhs):
-            return _coo_defect_refine(stamps_t, pb, rhs, core_t(pb, rhs),
-                                      lambda r: core_t(pb, r), iters)
-
-        return solve_batch, solve_rhs_t
-
-    def _finalize(self, solve_batch, solve_rhs_t):
-        """Wrap the method's raw solver in the contract layer when
-        ``refine="auto"`` asked for it, then in the adjoint
+    def _finalize(self, build):
+        """Build the method's operator under the precision policy
+        (:func:`_contract_layer`), then wrap its solve in the adjoint
         (:func:`make_adjoint_solver`): every solver is differentiable, on
         the card through its tier's kernels, which have no autograd rule
         of their own."""
-        if self._auto_escalate:
-            solve_batch = _escalating_solver(self.stamps, solve_batch)
-            solve_rhs_t = _escalating_solver(self.stamps, solve_rhs_t,
-                                             transpose=True)
-        self._solve_rhs_t = solve_rhs_t  # tests and diagnostics
+        # _operator and _solve_rhs_t: tests and diagnostics.
+        self._operator, solve_batch, self._solve_rhs_t = _contract_layer(
+            self.stamps, build, self.dtype, self.refine)
         self._solve = make_adjoint_solver(self.stamps, solve_batch,
-                                          solve_rhs_t)
+                                          self._solve_rhs_t)
 
     def _params(self, params_batch, dtype) -> torch.Tensor:
         params_batch = torch.as_tensor(params_batch, dtype=dtype,

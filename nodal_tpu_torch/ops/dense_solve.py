@@ -1,8 +1,9 @@
 """Dense MNA solves.
 
 Counterpart of ``nodal_tpu/ops/dense_solve.py``.  :func:`solve_dense`
-serves the ``dense`` tier (``batch.make_dense_core``), the pivoted f64
-rescue of the contract layer (``batch._escalating_solver``) and
+serves the ``dense`` tier (``batch._dense_operator``), the pivoted f64
+rescue of the contract layer (``batch._escalating_solver``, on an f64
+``_dense_operator``) and
 ``Circuit.solve``'s dense route and rescue on the card;
 :func:`solve_dense_host` serves ``Circuit.solve``'s dense route and rescue
 for CPU tensors.  As in the JAX package, the LU runs outside any kernel of

@@ -71,7 +71,7 @@ MANY_SOURCES = [
     [f"f{k}", "E", "1", f"n{(k + 4) % 9}_{2 * k + 2}", "g"] for k in range(13)]
 
 # (rows, solver keywords, batch, the port's tier, the schur sub-branch's
-# multi-RHS solve).
+# multi-RHS solve: on the dense node block, the solve on the LU factor).
 CASES = {
     "tridiag": (ladder_rows(32), {}, 3, "tridiag", None),
     "sband": (_mesh(9, 40, SRC), {}, 3, "sband", None),
@@ -90,7 +90,7 @@ CASES = {
     "schur-dense": (_random_graph_rows(300, 900, seed=1)
                     + [["e1", "E", "2", "n1", "g"],
                        ["d1", "VCCS", "0.5", "n3", "g", "n1", "g"]],
-                    {"method": "schur"}, 3, "schur", "lu_solve_multi"),
+                    {"method": "schur"}, 3, "schur", "lu_solve_factored"),
 }
 # refine value -> dtype of the solver (f64 for the raw and refined tiers,
 # f32 for the contract layer).

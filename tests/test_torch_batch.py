@@ -5,6 +5,8 @@ tiers (the mesh, wide-band, branch and unbanded tiers have their own files,
 test_torch_sband.py, test_torch_band.py, test_torch_schur.py and
 test_torch_block_lu.py)."""
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -22,6 +24,17 @@ from nodal_tpu_torch.models.stamps import stamps_from_reference  # noqa: E402
 from nodal_tpu_torch.ops import pcr  # noqa: E402
 from nodal_tpu_torch.utils import tracing  # noqa: E402
 from nodal_tpu_torch.utils.gridgen import grid_rows, ladder_rows  # noqa: E402
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for these small tensors: beside other test
+    processes the default pool oversubscribes the cores, and each tiny
+    parallel region then waits on the others."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 RUNGS, B = 64, 16
 
@@ -150,7 +163,10 @@ def test_contract_layer_escalates_like_reference(ladder):
         calls.append(rhs is None)
         return 1.05 * raw_t(pb, rhs)
 
-    got = tbatch._escalating_solver(stamps, inner_t)(
+    def prepare(pb):
+        return lambda rhs=None: inner_t(pb, rhs)
+
+    got = tbatch._escalating_solver(stamps, prepare)(
         torch.as_tensor(params, dtype=torch.float32))
     want = np.asarray(jbatch._escalating_solver(
         jc.stamps, lambda pb, rhs=None: 1.05 * raw_j(pb, rhs))(
@@ -188,51 +204,18 @@ def _traced(fn, *args):
     return out, tracing.recent(1)[0]
 
 
-@pytest.mark.parametrize("transpose", [False, True],
-                         ids=["forward", "transposed"])
-@pytest.mark.parametrize("method", ["sband", "band"])
-def test_contract_layer_reuses_the_band_bit_for_bit(mesh_sweep, method,
-                                                    transpose):
-    """The contract layer assembles the band once a run; the same run
-    through a raw solve without a prepared form assembles it for every
-    solve.  The answers are equal bit for bit: the same band meets the
-    same kernel with the same right-hand sides."""
-    stamps, params, rhs = mesh_sweep
-    solver = BatchedSolver(stamps, method=method, device="cpu")
-    raw = BatchedSolver(stamps, method=method, refine=False,
-                        device="cpu")._solve_rhs_t
-    assert solver.method == method and hasattr(raw, "prepare")
-    twice = tbatch._escalating_solver(
-        stamps, lambda pb, rhs=None: raw(pb, rhs), transpose=transpose)
-    if transpose:
-        args, once = (params, rhs), solver._solve_rhs_t
-    else:
-        args, once = (params,), solver
-    got, call = _traced(once, *args)
-    want, ref_call = _traced(twice, *args)
-    assert torch.equal(got, want)
-    passes = call.counters["contract_passes"]
-    assert ref_call.counters["contract_passes"] == passes >= 1
-    assert call.counters["band_assemblies"] == 1
-    assert ref_call.counters["band_assemblies"] == 1 + passes
-
-
 def test_prepared_inner_assembles_once_a_run(mesh_sweep):
     """A prepared solve 5 % off contracts the error by only 0.05 a pass,
     so the passes run to their cap: a tier solve each, all on the one
     band assembled by the first, and the contract still met."""
     stamps, params, _ = mesh_sweep
-    raw = BatchedSolver(stamps, refine=False, device="cpu")._solve_rhs_t
-
-    def inner(pb, rhs=None):
-        raise AssertionError("a prepared inner is solved through resolve")
+    raw = BatchedSolver(stamps, refine=False, device="cpu")._operator
 
     def prepare(pb):
         resolve = raw.prepare(pb)
         return lambda rhs=None: 1.05 * resolve(rhs)
 
-    inner.prepare = prepare
-    got, call = _traced(tbatch._escalating_solver(stamps, inner), params)
+    got, call = _traced(tbatch._escalating_solver(stamps, prepare), params)
     passes = tbatch._ESCALATE_MAX_PASSES
     assert call.counters["contract_passes"] == passes
     assert call.counters["band_assemblies"] == 1
@@ -313,6 +296,135 @@ def _sweep(jc, B=3, seed=3):
     rng = np.random.default_rng(seed)
     return (base * (1.0 + 0.05 * rng.standard_normal((B, len(base))))
             ).astype(np.float32).astype(np.float64)
+
+
+def _branch_rows(h, w):
+    """test_torch_schur.py's branch circuit: a mesh driven by a voltage
+    source, plus a VCCS."""
+    return list(grid_rows(h, w, (0, 0), (h - 1, w - 1))) + [
+        ["e1", "E", "2", "1", "g"],
+        ["d1", "VCCS", "0.5", "n3_3", "g", "1", "g"]]
+
+
+#: One circuit a tier and ``schur`` sub-branch: (rows, method, the batch
+#: module's function that the tier's ``prepare`` calls a fixed number of
+#: times, or None where the ``band_assemblies`` counter counts them, and
+#: the defect passes ``refine=True`` takes).
+TIERS = {
+    "tridiag": (ladder_rows(RUNGS), "tridiag", "assemble_tridiag", 2),
+    "sband": (MESH, "sband", None, 2),
+    "band": (MESH, "band", None, 2),
+    "block": (MESH, "block", "assemble_dense", 2),
+    # test_torch_schur.py's circuits: an 8×8 mesh whose node block is a
+    # narrow band (the scalar-band sub-branch), the 60×60 branch mesh (the
+    # block-Thomas one) and a random graph (the blocked LU).
+    "schur-sband": (list(grid_rows(8, 8, (0, 0), (7, 7))) + [
+        ["e1", "E", "2", "1", "g"],
+        ["d1", "VCCS", "0.5", "n0_3", "g", "1", "g"],
+        ["f1", "CCCS", "1.5", "n3_3", "g", "1", "g", "e1"]],
+        "schur", "gather_fold", 2),
+    "schur-band": (_branch_rows(60, 60), "schur", "gather_fold", 2),
+    "schur-lu": (_random_graph_rows(300, 900, seed=1, extra=[
+        ["e1", "E", "2", "n1", "g"],
+        ["d1", "VCCS", "0.5", "n3", "g", "n1", "g"]]),
+        "schur", "gather_fold", 3),
+    "dense": (ladder_rows(8)[1:] + [["v0", "E", "1", "n0", "g"]], "dense",
+              "assemble_dense", 3),
+}
+
+
+@functools.cache
+def _tier_sweep(tier):
+    """(port stamps, f32 params [4, n_components], an f64 natural-order
+    RHS [4, n]) for a tier of :data:`TIERS`, drawn as ``mesh_sweep``."""
+    stamps = Circuit(Netlist.from_rows(TIERS[tier][0])).stamps
+    rng = np.random.default_rng(21)
+    base = stamps.params
+    params = base * (1.0 + 0.05 * rng.standard_normal((4, len(base))))
+    return (stamps, torch.as_tensor(params, dtype=torch.float32),
+            torch.as_tensor(rng.standard_normal((4, stamps.n))))
+
+
+def _tier_call(solver, transpose, params, rhs):
+    """The forward call of ``solver`` or its transposed solve."""
+    if transpose:
+        return solver._solve_rhs_t, (params, rhs)
+    return solver, (params,)
+
+
+def _counted(monkeypatch, name):
+    """Calls of the batch module's function ``name`` from now on."""
+    calls = []
+    real = getattr(tbatch, name)
+    monkeypatch.setattr(tbatch, name,
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    return calls
+
+
+@pytest.mark.parametrize("transpose", [False, True],
+                         ids=["forward", "transposed"])
+@pytest.mark.parametrize("tier", list(TIERS))
+def test_contract_layer_reuses_the_band_bit_for_bit(tier, transpose,
+                                                    monkeypatch):
+    """Every tier prepares its operator (the band, bands, blocks or
+    factor) once a contract run; the same run on a prepared form whose
+    ``resolve`` prepares it again for every solve gives the same answer
+    bit for bit: the same operator meets the same kernel with the same
+    right-hand sides."""
+    _, method, assembly, _ = TIERS[tier]
+    stamps, params, rhs = _tier_sweep(tier)
+    solver = BatchedSolver(stamps, method=method, device="cpu")
+    assert solver.method == method
+    op = solver._operator
+    prepare = op.prepare_t if transpose else op.prepare
+    prepares = []
+
+    def reprepared(pb):
+        def resolve(rhs=None):
+            prepares.append(1)
+            return prepare(pb)(rhs)
+
+        return resolve
+
+    twice = tbatch._escalating_solver(stamps, reprepared, transpose=transpose)
+    once, args = _tier_call(solver, transpose, params, rhs)
+    calls = [] if assembly is None else _counted(monkeypatch, assembly)
+    got, call = _traced(once, *args)
+    n_once = len(calls)
+    want, ref_call = _traced(twice, *args)
+    assert torch.equal(got, want)
+    passes = call.counters["contract_passes"]
+    assert ref_call.counters["contract_passes"] == passes >= 1
+    assert call.counters["rescued_samples"] == 0
+    assert len(prepares) == 1 + passes
+    if assembly is None:
+        assert call.counters["band_assemblies"] == 1
+        assert ref_call.counters["band_assemblies"] == 1 + passes
+    else:
+        assert len(calls) - n_once == (1 + passes) * n_once > 0
+
+
+@pytest.mark.parametrize("transpose", [False, True],
+                         ids=["forward", "transposed"])
+@pytest.mark.parametrize("tier", list(TIERS))
+def test_refine_true_takes_the_tiers_fixed_passes(tier, transpose):
+    """``refine=True`` solves in f32 on the operator prepared once and
+    takes the tier's fixed number of exact-f64 defect passes, with no
+    escalation and no rescue; the answer meets the 1e-6 contract against
+    the raw f64 tier."""
+    _, method, _, passes = TIERS[tier]
+    stamps, params, rhs = _tier_sweep(tier)
+    solver = BatchedSolver(stamps, method=method, refine=True, device="cpu")
+    once, args = _tier_call(solver, transpose, params, rhs)
+    got, call = _traced(once, *args)
+    assert got.dtype == torch.float64
+    assert call.counters["contract_passes"] == passes
+    assert not call.find("contract.run")
+    assert "rescued_samples" not in call.counters
+    raw = BatchedSolver(stamps, method=method, dtype=torch.float64,
+                        refine=False, device="cpu")
+    truth, args = _tier_call(raw, transpose, params.to(torch.float64), rhs)
+    assert _rel_err(got.numpy(), truth(*args).detach().numpy()) <= 1e-6
 
 
 @pytest.mark.parametrize("rows,jax_method", [

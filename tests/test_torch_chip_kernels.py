@@ -15,6 +15,7 @@ import numpy as np  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402  (the shapes and bounds the card checks)
 from nodal_tpu_torch import BatchedSolver, Circuit, Netlist  # noqa: E402
+from nodal_tpu_torch import batch as tbatch  # noqa: E402
 from nodal_tpu_torch.ops import block_lu, lu  # noqa: E402
 from nodal_tpu_torch.ops.band import band_plan, band_thomas_solve  # noqa: E402
 from nodal_tpu_torch.ops.block_thomas import (  # noqa: E402
@@ -23,7 +24,7 @@ from nodal_tpu_torch.ops.sband import sband_solve_multi  # noqa: E402
 from nodal_tpu_torch.ops.scalar_band import sband_plan  # noqa: E402
 from nodal_tpu_torch.utils import tracing  # noqa: E402
 from nodal_tpu_torch.utils.gridgen import (  # noqa: E402
-    grid_rows, weighted_lattice_rows)
+    grid_rows, ladder_rows, weighted_lattice_rows)
 
 pytestmark = pytest.mark.chip
 
@@ -72,6 +73,73 @@ def test_band_kernels_leave_their_inputs(cuda, tier, dtype):
     assert torch.equal(W, W0)
     assert torch.equal(R, R0)
     assert torch.equal(again, x)
+
+
+def _random_regular_rows(n, seed):
+    """Unit resistors along two random permutations and a ground tie on
+    every node: no band, and at most 10 COO entries a row, so the f64
+    residual takes the gather-fold (the scatter-add that wider rows take
+    sums by atomics, whose order the card does not repeat)."""
+    rng = np.random.default_rng(seed)
+    rows = [["v", "A", "1", "n0", "g"]]
+    for k, p in enumerate((rng.permutation(n), rng.permutation(n))):
+        rows += [[f"r{k}_{a}", "R", "1", f"n{a}", f"n{b}"]
+                 for a, b in enumerate(p) if a != b]
+    return rows + [[f"rg{j}", "R", "1", f"n{j}", "g"] for j in range(n)]
+
+
+_MESH = list(grid_rows(9, 40, (0, 0), (8, 39))) + [["src", "A", "1", "1",
+                                                   "g"]]
+_BRANCH = [["e1", "E", "2", "1", "g"],
+           ["d1", "VCCS", "0.5", "n3_3", "g", "1", "g"]]
+
+#: One circuit a tier and schur sub-branch (rows, method).
+_TIERS = {
+    "tridiag": (ladder_rows(64), "tridiag"),
+    "sband": (_MESH, "sband"),
+    "band": (_MESH, "band"),
+    "block": (_MESH, "block"),
+    "schur-sband": (list(grid_rows(16, 17, (0, 0), (15, 16))) + _BRANCH,
+                    "schur"),
+    "schur-band": (list(grid_rows(60, 60, (0, 0), (59, 59))) + _BRANCH,
+                   "schur"),
+    "schur-lu": (_random_regular_rows(400, seed=1) + [
+        ["e1", "E", "2", "n1", "g"],
+        ["d1", "VCCS", "0.5", "n3", "g", "n1", "g"]], "schur"),
+    "dense": (ladder_rows(8)[1:] + [["v0", "E", "1", "n0", "g"]], "dense"),
+}
+
+
+@pytest.mark.parametrize("transpose", [False, True],
+                         ids=["forward", "transposed"])
+@pytest.mark.parametrize("tier", list(_TIERS))
+def test_every_tier_prepares_once_bit_for_bit(cuda, tier, transpose):
+    """The contract layer prepares each tier's operator (bands, blocks,
+    factor) once a run and solves every defect pass on it, so no kernel
+    may write what it is given: the run equals, bit for bit, the same run
+    on a prepared form that prepares again for every solve."""
+    rows, method = _TIERS[tier]
+    stamps = Circuit(Netlist.from_rows(rows)).stamps
+    solver = BatchedSolver(stamps, method=method, device=cuda)
+    assert solver.method == method
+    op = solver._operator
+    prepare = op.prepare_t if transpose else op.prepare
+    twice = tbatch._escalating_solver(
+        stamps, lambda pb: lambda rhs=None: prepare(pb)(rhs),
+        transpose=transpose)
+    gen = torch.Generator(device=cuda).manual_seed(25)
+    base = torch.as_tensor(stamps.params, dtype=torch.float32, device=cuda)
+    params = base * (1.0 + 0.05 * torch.randn(
+        (64, len(base)), generator=gen, dtype=torch.float32, device=cuda))
+    rhs = torch.randn((64, stamps.n), generator=gen, dtype=torch.float64,
+                      device=cuda)
+    if transpose:
+        got, want = solver._solve_rhs_t(params, rhs), twice(params, rhs)
+    else:
+        got, want = solver(params), twice(params)
+    torch.cuda.synchronize(cuda)
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, want)
 
 
 def test_thomas_kernels_counted_a_host_loop(cuda):

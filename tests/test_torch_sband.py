@@ -36,6 +36,17 @@ from nodal_tpu_torch.ops import scalar_band as tsb  # noqa: E402
 from nodal_tpu_torch.utils import kernels  # noqa: E402
 from nodal_tpu_torch.utils.gridgen import grid_rows, ladder_rows  # noqa: E402
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for these small tensors: beside other test
+    processes the default pool oversubscribes the cores, and each tiny
+    parallel region then waits on the others."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 PLAN_FIELDS = ("order", "rank", "sel", "u_flat", "unit_flat", "rhs_sel",
                "rhs_perm_rows")
 

@@ -49,6 +49,17 @@ from nodal_tpu_torch.ops import block_thomas, sband  # noqa: E402
 from nodal_tpu_torch.ops import scalar_band as tsb  # noqa: E402
 from nodal_tpu_torch.utils.gridgen import grid_rows, ladder_rows  # noqa: E402
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for these small tensors: beside other test
+    processes the default pool oversubscribes the cores, and each tiny
+    parallel region then waits on the others."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 H, W, B = 16, 17, 6
 
 
@@ -359,15 +370,15 @@ def dense_branch(request):
 
 def test_dense_node_block_sub_branch_choice(dense_branch, monkeypatch):
     """The random graph's node block has no band a banded sub-branch
-    takes, so the port solves A⁻¹[B | bk] on the blocked LU (300 nodes
-    padded to 384, two border columns and the RHS); the 8×8 mesh's node
-    block is a narrow band and never reaches it."""
+    takes, so the port solves A⁻¹[B | bk] on the blocked LU's factor (300
+    nodes padded to 384, two border columns and the RHS); the 8×8 mesh's
+    node block is a narrow band and never reaches it."""
     _, st, params, _, rows = dense_branch
     calls = []
-    real = tbatch.lu_solve_multi
-    monkeypatch.setattr(tbatch, "lu_solve_multi",
-                        lambda A, R: calls.append(tuple(R.shape))
-                        or real(A, R))
+    real = tbatch.lu_solve_factored
+    monkeypatch.setattr(tbatch, "lu_solve_factored",
+                        lambda F, R: calls.append(tuple(R.shape))
+                        or real(F, R))
     BatchedSolver(st, refine=False, method="schur", device="cpu")(params)
     if rows is DENSE_NODE_BLOCK["random_graph"]:
         assert calls == [(len(params), 384, 3)]

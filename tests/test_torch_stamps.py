@@ -20,6 +20,17 @@ from nodal_tpu_torch import Netlist  # noqa: E402
 from nodal_tpu_torch.models import stamps as tstamps  # noqa: E402
 from nodal_tpu_torch.utils.gridgen import grid_rows, ladder_rows  # noqa: E402
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for these small tensors: beside other test
+    processes the default pool oversubscribes the cores, and each tiny
+    parallel region then waits on the others."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXAMPLES = sorted(glob.glob(os.path.join(REPO, "examples", "*.csv")))
 
