@@ -3,7 +3,9 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``nodal_tpu_torch/csrc``, holds each kernel
-against its plain PyTorch version on the card, then drives each main path
+against its plain PyTorch version on the card (the block Thomas's kept
+elimination and its substitution against a fresh solve, bit for bit, and
+the substitution timed beside its byte bound), then drives each main path
 once through ``BatchedSolver(refine="auto")`` and checks its answers
 against the f64 audit, every sample against the tier's raw f64 solve and
 sample 0 against a numpy f64 dense solve:
@@ -218,6 +220,13 @@ BAND_SHAPES = [
 ]
 BAND_TIME_SHAPES = [(GENERAL_BATCH, 16, 128, 1), (MIDSIZE_BATCH, 79, 128, 1),
                     (MIDSIZE_BATCH, 10, 256, 1)]
+# (B, nb, 128, r <= APPLY_R): the kept elimination and its substitution
+# at the lattice's and the 100×100 mesh's shapes, one and two block rows,
+# every r, one system.
+BAND_SUBST_SHAPES = [
+    (GENERAL_BATCH, 16, 128, 1), (MIDSIZE_BATCH, 79, 128, 1),
+    (5, 1, 128, 1), (7, 2, 128, 4), (3, 16, 128, 3), (1, 79, 128, 2),
+]
 
 RANDNET_NODES, RANDNET_EDGES = 1000, 4000
 RANDNET4K_NODES, RANDNET4K_EDGES, RANDNET4K_BATCH = 4000, 16000, 64
@@ -858,6 +867,100 @@ def phase_band_kernel(block_thomas, band):
     return worst, timing
 
 
+def phase_band_subst(block_thomas, band):
+    """The kept elimination (``band_factor``) and the substitution-only
+    launch (``band_substitute``, kernel ``block_thomas_subst``) on the
+    card: the first answer and each substitution for new right-hand sides
+    against the plain solver (``band_thomas_solve``) within
+    ``BAND_RTOL``, and against ``band_solve_multi`` bit for bit, the held
+    factors left as they were, one launch a substitution; then, at the
+    lattice's shape, the substitution's device time beside its bound
+    (bytes: L_t, S_t⁻¹ and C_t read once, 3nb − 2 blocks a system), the
+    full solve's and the plain substitution's (``band_thomas_substitute``),
+    in turns.  Returns the timing of the f32 lattice shape, for the
+    summary's ``kernels`` line."""
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    subst = block_thomas.band_substitute
+    scratch_max = block_thomas.SCRATCH_BYTES_MAX
+    # The lattice's shape keeps 4.4 GB in f64, past the default cap.
+    block_thomas.SCRATCH_BYTES_MAX = 16 << 30
+    try:
+        for dtype in (torch.float32, torch.float64):
+            for B, nb, kb, r in BAND_SUBST_SHAPES:
+                W, R = random_block_band(B, nb, kb, r, dtype, gen)
+                R2 = torch.randn(R.shape, generator=gen, device="cuda",
+                                 dtype=dtype)
+                X, f = block_thomas.band_factor(W, R)
+                check(f is not None, f"band_factor kept nothing at "
+                      f"{(B, nb, kb, r)} {dtype}")
+                F0 = f.F.clone()
+                before = subst.launches
+                got = subst(f, R2)
+                launches = subst.launches - before
+                want = block_thomas.band_solve_multi(W, R)
+                want2 = block_thomas.band_solve_multi(W, R2)
+                torch.cuda.synchronize()
+                same = {"factor": torch.equal(X, want),
+                        "subst": torch.equal(got, want2),
+                        "held": torch.equal(f.F, F0)}
+                del want, want2, F0
+                err = {"factor": rel_diff(
+                           X.reshape(B, -1),
+                           band.band_thomas_solve(W, R).reshape(B, -1)),
+                       "subst": rel_diff(
+                           got.reshape(B, -1),
+                           band.band_thomas_solve(W, R2).reshape(B, -1))}
+                emit({"phase": "kernel_check", "kernel": "band_subst",
+                      "B": B, "nb": nb, "kb": kb, "r": r,
+                      "dtype": str(dtype), "bit_for_bit": same,
+                      "max_rel_diff": err, "tol": BAND_RTOL[dtype],
+                      "launches": launches})
+                check(all(same.values()), f"band_factor / band_substitute "
+                      f"at {(B, nb, kb, r)} {dtype}: {same}")
+                check(max(err.values()) <= BAND_RTOL[dtype],
+                      f"band_factor / band_substitute differ from the "
+                      f"plain solver by {err} at {(B, nb, kb, r)} {dtype}")
+                check(launches == 1, f"band_substitute made {launches} "
+                      f"launches at {(B, nb, kb, r)} {dtype}")
+                del W, R, R2, X, f, got
+                torch.cuda.empty_cache()
+        timing = {}
+        for dtype in (torch.float32, torch.float64):
+            B, nb, kb, r = BAND_SUBST_SHAPES[0]
+            W, R = random_block_band(B, nb, kb, r, dtype, gen)
+            _, f = block_thomas.band_factor(W, R)
+            _, plain_f = band.band_thomas_factor(W, R)
+            max_abs = float((subst(f, R) - band.band_thomas_substitute(
+                plain_f, R)).abs().max())
+            solve = functools.partial(block_thomas.band_solve_multi, W, R)
+            kernel = functools.partial(subst, f, R)
+            plain = functools.partial(band.band_thomas_substitute, plain_f,
+                                      R)
+            before = subst.launches
+            kernel()
+            launches = subst.launches - before
+            times = [cuda_ms(fn) for fn in (solve, kernel, kernel, solve)]
+            plain_ms = [cuda_ms(plain, reps=2, warmup=1) for _ in range(2)]
+            item = W.element_size()
+            bound = bound_ms(B * (3 * nb - 2) * 2 * kb * kb * r,
+                             (B * (3 * nb - 2) * kb * kb
+                              + 2 * B * nb * kb * r) * item, dtype)
+            emit({"phase": "kernel_time", "kernel": "band_subst", "B": B,
+                  "nb": nb, "kb": kb, "r": r, "dtype": str(dtype),
+                  "subst_ms": times[1:3], "solve_ms": [times[0], times[3]],
+                  "plain_ms": plain_ms, "max_abs_err": max_abs,
+                  "launches": launches, **bound})
+            # No library call substitutes on a kept block elimination.
+            timing[dtype] = {"ms": min(times[1:3]), "plain_ms": min(plain_ms),
+                             "max_abs_err": max_abs, "library_ms": None,
+                             **bound}
+            del W, R, f, plain_f
+            torch.cuda.empty_cache()
+    finally:
+        block_thomas.SCRATCH_BYTES_MAX = scratch_max
+    return timing[torch.float32]
+
+
 def time_band(block_thomas, band, W, R) -> dict:
     """The block-Thomas kernels against their plain version on ``W``,
     ``R``: device ms in turns (plain, kernel, kernel, plain), the largest
@@ -1183,7 +1286,8 @@ def phase_path(label, rows, batch, method, kernels, rate_refines,
     (each must launch; with ``kernels=None`` no kernel of the repo may),
     check the answers (every sample against the tier's raw f64 solve,
     sample 0 against numpy f64 dense, the f64 audit), then time the
-    ``rate_refines`` tiers.  Returns the launch count."""
+    ``rate_refines`` tiers.  Returns the launches of each wrapper in
+    ``kernels`` over that call, by name."""
     from nodal_tpu_torch import BatchedSolver, Circuit, Netlist
     from nodal_tpu_torch.ops import block_thomas, lu, pcr, sband
 
@@ -1199,20 +1303,19 @@ def phase_path(label, rows, batch, method, kernels, rate_refines,
           f"{label}: method is {solver.method}, expected {method}")
 
     wrappers = (pcr.pcr_solve, sband.sband_solve_multi,
-                block_thomas.band_solve_multi, lu.lu_factor,
-                lu.lu_solve_factored)
+                block_thomas.band_solve_multi, block_thomas.band_substitute,
+                lu.lu_factor, lu.lu_solve_factored)
     for w in wrappers:
         w.launches = 0
         if hasattr(w, "last_shape"):
             w.last_shape = None
     xs = solver(params)
     torch.cuda.synchronize()
+    launches = {w.__name__: w.launches for w in kernels or ()}
     if kernels is None:
-        launches = 0
         check(all(w.launches == 0 for w in wrappers),
               f"{label}: a kernel of the repo launched on the library path")
     else:
-        launches = sum(w.launches for w in kernels)
         check(all(w.launches > 0 for w in kernels),
               f"{label}: the main path never launched a kernel of "
               f"{[w.__name__ for w in kernels]}")
@@ -1337,7 +1440,7 @@ def batch_kernels(ops) -> dict:
     """The kernels each family launched since the counts of its wrappers
     in ``ops`` (the pcr, sband, block_thomas and lu modules) were
     reset.  PCR and the scalar band launch one a counted call.  The block
-    Thomas counts host loops, each ``launch_plan``'s launches; the blocked
+    Thomas counts every kernel it launches (``kernels``); the blocked
     LU counts factorizations, ``factor_launches`` each, and solves, 4q − 2
     products each for q panels (``dense_tile.cuh:lu_solve``: two a panel
     forward but the last, two a panel backward), at their last calls'
@@ -1347,10 +1450,7 @@ def batch_kernels(ops) -> dict:
     out = {"pcr": pcr.pcr_solve.launches,
            "sband": sband.sband_solve_multi.launches,
            "block_thomas": 0, "block_lu": 0}
-    if bt.launches:
-        B, nb, kb, r = bt.last_shape
-        out["block_thomas"] = bt.launches * block_thomas.launch_plan(
-            B, nb, kb, min(r, block_thomas.MAX_R), 4).launches
+    out["block_thomas"] = bt.kernels
     if lu.lu_factor.launches or solve.launches:
         n = solve.last_shape[1]
         out["block_lu"] = (lu.lu_factor.launches * lu.factor_launches(n)
@@ -1390,6 +1490,7 @@ def phase_profile(label, rows, batch, ops):
             for name in labels:
                 for w in wrappers:
                     w.launches = 0
+                block_thomas.band_solve_multi.kernels = 0
                 with record_function(name):
                     solver(params)
                 launched[name] = batch_kernels(ops)
@@ -4152,6 +4253,7 @@ def main() -> None:
     worst, timing = phase_kernels(pcr, tridiag)
     sb_worst, sb_timing = phase_sband_kernel(sband, scalar_band)
     bt_worst, bt_timing = phase_band_kernel(block_thomas, band)
+    subst_timing = phase_band_subst(block_thomas, band)
     lu_worst, lu_timing = phase_lu_kernel(lu, block_lu)
     emit({"phase": "kernel_check_worst",
           "pcr_solve": {str(k): v for k, v in worst.items()},
@@ -4160,38 +4262,49 @@ def main() -> None:
           "lu_solve": {str(k): v for k, v in lu_worst.items()}})
     clock("solver kernels")
     launches = phase_path("ladder", ladder_rows(LADDER_RUNGS), BATCH,
-                          "tridiag", (pcr.pcr_solve,), ("auto", False))
+                          "tridiag", (pcr.pcr_solve,),
+                          ("auto", False))["pcr_solve"]
     sb = (sband.sband_solve_multi,)
     sb_launches = phase_path("mesh", mesh_rows(MESH_NODES), BATCH, "sband",
-                             sb, ("auto", False))
+                             sb, ("auto", False))["sband_solve_multi"]
     for n_nodes in MIDSIZE_NODES:
-        sb_launches += phase_path(f"midsize{n_nodes}", mesh_rows(n_nodes),
-                                  MIDSIZE_BATCH, "sband", sb, ("auto",))
+        sb_launches += phase_path(
+            f"midsize{n_nodes}", mesh_rows(n_nodes), MIDSIZE_BATCH, "sband",
+            sb, ("auto",))["sband_solve_multi"]
     sb_launches += phase_path(
         "branch", mesh_rows(MESH_NODES, branch=True), BATCH, "schur",
         sb, ("auto", False),
-        functools.partial(branch_check, kernel=sband.sband_solve_multi))
+        functools.partial(branch_check, kernel=sband.sband_solve_multi)
+    )["sband_solve_multi"]
+    # The lattice and the 100×100 mesh (kb 128) keep their elimination, so
+    # their "auto" calls must substitute; the wide lattice (kb 256) and the
+    # schur node band eliminate for every solve.
     bt = (block_thomas.band_solve_multi,)
-    bt_launches = phase_path("lattice", lattice_rows(20, 10, 10),
-                             GENERAL_BATCH, "band", bt, ("auto", False))
-    bt_launches += phase_path("widemesh", grid_circuit_rows(100, 100),
-                              MIDSIZE_BATCH, "band", bt, ("auto", False))
-    bt_launches += phase_path("widelattice", lattice_rows(12, 14, 14),
-                              MIDSIZE_BATCH, "band", bt, ("auto", False))
+    kept = bt + (block_thomas.band_substitute,)
+    bt_launches = subst_launches = 0
+    for label, rows, batch, kernels_of in (
+            ("lattice", lattice_rows(20, 10, 10), GENERAL_BATCH, kept),
+            ("widemesh", grid_circuit_rows(100, 100), MIDSIZE_BATCH, kept),
+            ("widelattice", lattice_rows(12, 14, 14), MIDSIZE_BATCH, bt)):
+        got = phase_path(label, rows, batch, "band", kernels_of,
+                         ("auto", False))
+        bt_launches += got["band_solve_multi"]
+        subst_launches += got.get("band_substitute", 0)
     bt_launches += phase_path(
         "widebranch", grid_circuit_rows(64, 64, branch=True), GENERAL_BATCH,
         "schur", bt, ("auto", False),
-        functools.partial(branch_check, kernel=block_thomas.band_solve_multi))
+        functools.partial(branch_check, kernel=block_thomas.band_solve_multi)
+    )["band_solve_multi"]
     lus = (lu.lu_factor, lu.lu_solve_factored)
-    lu_launches = phase_path("randnet", randnet_rows(), GENERAL_BATCH,
-                             "block", lus, ("auto", False))
-    lu_launches += phase_path(
-        "randnet4k", randnet_rows(RANDNET4K_NODES, RANDNET4K_EDGES),
-        RANDNET4K_BATCH, "block", lus, ("auto", False))
-    lu_launches += phase_path(
-        "randbranch", randnet_rows(branch=True), GENERAL_BATCH, "schur",
-        lus, ("auto", False),
-        functools.partial(branch_check, kernel=lu.lu_solve_factored))
+    lu_launches = 0
+    for label, rows, batch, method, extra in (
+            ("randnet", randnet_rows(), GENERAL_BATCH, "block", None),
+            ("randnet4k", randnet_rows(RANDNET4K_NODES, RANDNET4K_EDGES),
+             RANDNET4K_BATCH, "block", None),
+            ("randbranch", randnet_rows(branch=True), GENERAL_BATCH, "schur",
+             functools.partial(branch_check, kernel=lu.lu_solve_factored))):
+        lu_launches += sum(phase_path(label, rows, batch, method, lus,
+                                      ("auto", False), extra).values())
     phase_path("opchain", opchain_rows(OPCHAIN_STAGES), BATCH, "dense", None,
                ("auto", False))
     clock("sweep paths")
@@ -4268,6 +4381,10 @@ def main() -> None:
                      "nodal_tpu/ops/pallas_band.py:300 and "
                      "nodal_tpu/ops/pallas_band.py:476", bt_launches,
                      bt_timing[(GENERAL_BATCH, 16, 128, torch.float32)]),
+        kernel_entry("block_thomas_subst",
+                     "nodal_tpu_torch/csrc/block_thomas.cu",
+                     "none (no TPU kernel substitutes on a kept "
+                     "elimination)", subst_launches, subst_timing),
         kernel_entry("lu_solve", "nodal_tpu_torch/csrc/block_lu.cu",
                      "nodal_tpu/ops/pallas_block_lu.py:345 and "
                      "nodal_tpu/ops/pallas_block_lu.py:408", lu_launches,

@@ -51,8 +51,9 @@ from nodal_tpu_torch.ops.assemble import (assemble_dense, assemble_tridiag,
                                           bandwidth, gather_fold)
 from nodal_tpu_torch.ops.band import band_plan, node_band_plan
 from nodal_tpu_torch.ops.block_lu import _BLOCK, schur_eliminate
-from nodal_tpu_torch.ops.block_thomas import (MAX_R, band_solve,
-                                              band_solve_multi)
+from nodal_tpu_torch.ops.block_thomas import (MAX_R, band_factor,
+                                              band_solve, band_solve_multi,
+                                              band_substitute)
 from nodal_tpu_torch.ops.lu import lu_factor, lu_solve_factored
 from nodal_tpu_torch.ops.pcr import pcr_solve
 from nodal_tpu_torch.ops.sband import (sband_fits, sband_solve,
@@ -207,12 +208,15 @@ class _Operator:
     [B, n] -> [B, n], as often as asked.  ``prepare_t`` is the same for
     the transposed systems (``prepare`` itself for the symmetric resistive
     tiers).  ``passes`` is the fixed number of defect passes that
-    ``refine=True`` takes on this tier.
+    ``refine=True`` takes on this tier.  ``once``, where set, is the pair
+    ``(prepare, prepare_t)`` for a call that solves once: it holds nothing
+    for a later solve (the ``band`` tier's kept elimination).
     """
 
     prepare: Callable
     prepare_t: Callable
     passes: int
+    once: tuple | None = None
 
 
 class _DefectPass:
@@ -354,7 +358,8 @@ def _contract_layer(stamps: StampTensors, build, dtype, refine):
     :class:`_Operator` ``build(working_dtype)`` builds.
 
     * Raw (``refine=False``, or ``"auto"`` with f64): the operator in
-      ``dtype``, prepared and solved once a call.
+      ``dtype``, prepared and solved once a call (its ``once`` form where
+      it has one).
     * ``refine=True``: the f32 operator and the tier's fixed number of
       exact-f64 defect passes (:func:`_refined_solver`); f64 out.
     * ``refine="auto"`` with f32: the f32 operator in the escalating
@@ -365,8 +370,9 @@ def _contract_layer(stamps: StampTensors, build, dtype, refine):
     """
     if not refine or (refine == "auto" and dtype != torch.float32):
         op = build(dtype)
-        return (op, lambda pb, rhs=None: op.prepare(pb)(rhs),
-                lambda pb, rhs: op.prepare_t(pb)(rhs))
+        prepare, prepare_t = op.once or (op.prepare, op.prepare_t)
+        return (op, lambda pb, rhs=None: prepare(pb)(rhs),
+                lambda pb, rhs: prepare_t(pb)(rhs))
     op = build(torch.float32)
     if refine == "auto":
         return (op, _escalating_solver(stamps, op.prepare),
@@ -509,10 +515,10 @@ def _tridiag_operator(stamps: StampTensors, dtype) -> _Operator:
 
 
 def _band_operator(stamps: StampTensors, plan, solve, dtype) -> _Operator:
-    """A banded resistive tier: ``band`` (a
+    """A banded resistive tier: ``sband`` (a scalar-band plan and
+    ``sband_solve``), or ``band`` for a call that solves once (a
     :class:`~nodal_tpu_torch.ops.band.BandPlan` and ``band_solve``, the
-    block-Thomas kernel) or ``sband`` (a scalar-band plan and
-    ``sband_solve``).
+    block-Thomas kernel; :func:`_thomas_operator`'s ``once``).
 
     ``prepare`` assembles the band once; ``resolve`` runs the kernel on
     it (f64 runs the kernel's f64 instantiation on the card).  Neither
@@ -534,6 +540,42 @@ def _band_operator(stamps: StampTensors, plan, solve, dtype) -> _Operator:
         return resolve
 
     return _Operator(prepare, prepare, passes=2)  # symmetric
+
+
+def _thomas_operator(stamps: StampTensors, plan, dtype) -> _Operator:
+    """The ``band`` tier: a :class:`~nodal_tpu_torch.ops.band.BandPlan`
+    and the block-Thomas kernels.
+
+    ``prepare`` assembles the band once.  The first ``resolve`` eliminates
+    and keeps every S_t⁻¹ and C_t where they fit (``band_factor``: kb =
+    128 and at most ``SCRATCH_BYTES_MAX``, ~2.2 GB at the lattice's B 1024
+    in f32), and each later one only substitutes on them
+    (``band_substitute``), in the bits of a fresh solve; the contract
+    layer's ``del resolve`` frees them.  Where nothing is kept, each
+    ``resolve`` eliminates again.  A call that solves once takes ``once``,
+    :func:`_band_operator` on the same plan, which keeps nothing.
+    """
+
+    def prepare(params_batch):
+        with tracing.span("band.assemble", params_batch):
+            W, b = plan.assemble(stamps, params_batch, dtype=dtype)
+            tracing.count("band_assemblies")
+        held = None
+
+        def resolve(rhs=None):
+            nonlocal held
+            rb = b if rhs is None else plan.rhs_to_band(rhs, dtype)
+            R = rb.unsqueeze(-1).contiguous()
+            if held is None:
+                X, held = band_factor(W, R)
+            else:
+                X = band_substitute(held, R)
+            return plan.unpermute(X[..., 0])
+
+        return resolve
+
+    once = _band_operator(stamps, plan, band_solve, dtype).prepare
+    return _Operator(prepare, prepare, passes=2, once=(once, once))
 
 
 def _block_operator(stamps: StampTensors, dtype) -> _Operator:
@@ -956,8 +998,8 @@ class BatchedSolver:
             build = functools.partial(_band_operator, stamps,
                                       sband_plan(stamps), sband_solve)
         elif method == "band":
-            build = functools.partial(_band_operator, stamps,
-                                      band_plan(stamps), band_solve)
+            build = functools.partial(_thomas_operator, stamps,
+                                      band_plan(stamps))
         elif method == "block":
             build = functools.partial(_block_operator, stamps)
         elif method == "schur":

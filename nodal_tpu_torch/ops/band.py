@@ -258,3 +258,80 @@ def band_thomas_solve(W: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         xs.append(ys[t] - Cs[t] @ xs[-1])
     x = torch.stack(xs[::-1], dim=-3).reshape(b.shape)
     return x[..., 0] if vector_rhs else x
+
+
+@dataclass(frozen=True)
+class ThomasFactors:
+    """The elimination :func:`band_thomas_factor` kept of the band ``W``:
+    for each block row the LU factors and pivots of S_t and C_t =
+    S_t⁻¹U_t."""
+
+    W: torch.Tensor
+    lu: list
+    C: list
+
+
+def band_thomas_factor(W: torch.Tensor, b: torch.Tensor):
+    """:func:`band_thomas_solve` keeping the elimination: ``(x,
+    ThomasFactors)`` for :func:`band_thomas_substitute`.  Each step takes
+    the LU that ``torch.linalg.solve`` takes, so x is
+    :func:`band_thomas_solve`'s bit for bit.  The plain version of the
+    block-Thomas kernel's held factorization."""
+    nb, kb = W.shape[-3], W.shape[-2]
+    vector_rhs = b.dim() == W.dim() - 2
+    if vector_rhs:
+        b = b[..., None]
+    bb = b.reshape(b.shape[:-2] + (nb, kb, b.shape[-1]))
+    lus, Cs, ys = [], [], []
+    for t in range(nb):
+        Wt = W[..., t, :, :].to(b.dtype)
+        L, S, U = Wt[..., :kb], Wt[..., kb:2 * kb], Wt[..., 2 * kb:]
+        rhs = bb[..., t, :, :]
+        if t:
+            S = S - L @ Cs[-1]
+            rhs = rhs - L @ ys[-1]
+        lus.append(torch.linalg.lu_factor(S))
+        sol = torch.linalg.lu_solve(*lus[-1], torch.cat([U, rhs], dim=-1))
+        Cs.append(sol[..., :kb])
+        ys.append(sol[..., kb:])
+    x = _back_substitute(Cs, ys).reshape(b.shape)
+    return (x[..., 0] if vector_rhs else x), ThomasFactors(W, lus, Cs)
+
+
+def band_thomas_substitute(f: ThomasFactors, b: torch.Tensor
+                           ) -> torch.Tensor:
+    """x = W⁻¹b on the elimination ``f`` of W, for b shaped as in
+    :func:`band_thomas_solve`: only the substitutions
+
+        y_t = S_t⁻¹ (b_t − L_t y_{t−1}),  x_t = y_t − C_t x_{t+1},
+
+    which give the bits :func:`band_thomas_solve` gives for the same W
+    and b.  The plain version of ``block_thomas_subst``."""
+    W = f.W
+    kb = W.shape[-2]
+    vector_rhs = b.dim() == W.dim() - 2
+    if vector_rhs:
+        b = b[..., None]
+    r = b.shape[-1]
+    bb = b.reshape(b.shape[:-2] + (len(f.lu), kb, r))
+    ys = []
+    for t, (LU, piv) in enumerate(f.lu):
+        rhs = bb[..., t, :, :]
+        if t:
+            rhs = rhs - W[..., t, :, :].to(b.dtype)[..., :kb] @ ys[-1]
+        # The triangular solves take one column by another path than
+        # several: a lone right-hand side goes with a zero column, as it
+        # goes beside U_t in the elimination, and comes out in its bits.
+        if r == 1:
+            rhs = torch.cat([rhs, torch.zeros_like(rhs)], dim=-1)
+        ys.append(torch.linalg.lu_solve(LU, piv, rhs)[..., :r])
+    x = _back_substitute(f.C, ys).reshape(b.shape)
+    return x[..., 0] if vector_rhs else x
+
+
+def _back_substitute(Cs: list, ys: list) -> torch.Tensor:
+    """x_{nb−1} = y_{nb−1}, x_t = y_t − C_t x_{t+1}: [..., nb, kb, r]."""
+    xs = [ys[-1]]
+    for t in range(len(ys) - 2, -1, -1):
+        xs.append(ys[t] - Cs[t] @ xs[-1])
+    return torch.stack(xs[::-1], dim=-3)

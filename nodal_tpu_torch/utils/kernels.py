@@ -54,7 +54,10 @@ _SIGNATURES = {
     **{name: ([_P] * 4 + [_I] * 7 + [_P], _I)
        for name in ("sband_solve_f32", "sband_solve_f64")},
     **{name: ([_P] * 4 + [_I] * 4 + [_P], _I)
-       for name in ("block_thomas_f32", "block_thomas_f64")},
+       for name in ("block_thomas_f32", "block_thomas_f64",
+                    "block_thomas_factor_f32", "block_thomas_factor_f64")},
+    **{name: ([_P] * 5 + [_I] * 5 + [_P], _I)
+       for name in ("block_thomas_subst_f32", "block_thomas_subst_f64")},
     **{name: ([_P] * 2 + [_I] * 2 + [_P], _I)
        for name in ("block_lu_factor_f32", "block_lu_factor_f64")},
     **{name: ([_P] * 3 + [_I] * 3 + [_P], _I)

@@ -16,10 +16,10 @@ import numpy as np  # noqa: E402
 import chip_smoke as cs  # noqa: E402  (the shapes and bounds the card checks)
 from nodal_tpu_torch import BatchedSolver, Circuit, Netlist  # noqa: E402
 from nodal_tpu_torch import batch as tbatch  # noqa: E402
-from nodal_tpu_torch.ops import block_lu, lu  # noqa: E402
+from nodal_tpu_torch.ops import block_lu, block_thomas, lu  # noqa: E402
 from nodal_tpu_torch.ops.band import band_plan, band_thomas_solve  # noqa: E402
 from nodal_tpu_torch.ops.block_thomas import (  # noqa: E402
-    band_solve_multi, launch_plan)
+    band_factor, band_solve_multi, band_substitute, launch_plan)
 from nodal_tpu_torch.ops.sband import sband_solve_multi  # noqa: E402
 from nodal_tpu_torch.ops.scalar_band import sband_plan  # noqa: E402
 from nodal_tpu_torch.utils import tracing  # noqa: E402
@@ -134,19 +134,42 @@ def test_every_tier_prepares_once_bit_for_bit(cuda, tier, transpose):
     rhs = torch.randn((64, stamps.n), generator=gen, dtype=torch.float64,
                       device=cuda)
     if transpose:
-        got, want = solver._solve_rhs_t(params, rhs), twice(params, rhs)
+        (got, call), (want, ref) = (
+            _traced(solver._solve_rhs_t, params, rhs),
+            _traced(twice, params, rhs))
     else:
-        got, want = solver(params), twice(params)
+        (got, call), (want, ref) = _traced(solver, params), _traced(
+            twice, params)
     torch.cuda.synchronize(cuda)
     assert bool(torch.isfinite(got).all())
     assert torch.equal(got, want)
+    if tier == "band":
+        # The band tier eliminates once and substitutes for each pass.
+        passes = call.counters["contract_passes"]
+        assert call.counters["thomas_factorizations"] == 1
+        assert call.counters["thomas_substitutions"] == passes >= 1
+        assert ref.counters["thomas_factorizations"] == 1 + passes
+
+
+def _traced(fn, *args):
+    """``fn(*args)`` in a call record of its own: (result, record)."""
+    tracing.enable()
+    try:
+        with tracing.root("check"):
+            out = fn(*args)
+    finally:
+        tracing.disable()
+    return out, tracing.recent(1)[0]
 
 
 def test_thomas_kernels_counted_a_host_loop(cuda):
-    """A ``band``-tier sweep call of the 20×10×10 lattice: the tracing
-    counter ``thomas_kernels`` and ``band_solve_multi.kernels`` both add
-    ``launch_plan``'s kernels for every host loop, and each block-Thomas
-    solve is a device-timed ``thomas.solve`` span."""
+    """A ``band``-tier sweep call of the 20×10×10 lattice: one host loop
+    eliminates (``band_solve_multi.launches``, ``thomas_factorizations``)
+    and each defect pass substitutes (``thomas_substitutions``); the
+    tracing counter ``thomas_kernels`` and ``band_solve_multi.kernels``
+    both add ``launch_plan``'s kernels for the host loop and one a
+    substitution, and each block-Thomas solve is a device-timed
+    ``thomas.solve`` span."""
     circuit = Circuit(Netlist.from_rows(_lattice_rows()
                                         + [["src", "A", "1", "1", "g"]]))
     solver = BatchedSolver(circuit, device=cuda)
@@ -162,13 +185,78 @@ def test_thomas_kernels_counted_a_host_loop(cuda):
         tracing.disable()
     loops = band_solve_multi.launches - loops
     per_loop = launch_plan(*band_solve_multi.last_shape, 4).launches
+    passes = call.counters["contract_passes"]
     assert band_solve_multi.last_shape == (64, 16, 128, 1)
-    assert loops == 1 + call.counters["contract_passes"]
-    assert call.counters["thomas_kernels"] == loops * per_loop == \
+    assert loops == call.counters["thomas_factorizations"] == 1
+    assert call.counters["thomas_substitutions"] == passes >= 1
+    assert call.counters["thomas_kernels"] == loops * per_loop + passes == \
         band_solve_multi.kernels - kernels
     spans = call.find("thomas.solve")
-    assert len(spans) == loops
+    assert len(spans) == loops + passes
     assert all(s.device_ms > 0 for s in spans)
+
+
+def test_lattice_call_trace_holds_the_counted_kernels(cuda):
+    """One profiled ``band``-tier call of the 20×10×10 lattice: the
+    block-Thomas kernels in the trace, substitution included, are as many
+    as ``band_solve_multi.kernels`` counted (the benchmark's condition
+    for a whole trace), from one eliminating host loop.  The profiler
+    drops events at times, so up to three calls are traced."""
+    from torch.profiler import ProfilerActivity, profile
+
+    circuit = Circuit(Netlist.from_rows(_lattice_rows()
+                                        + [["src", "A", "1", "1", "g"]]))
+    solver = BatchedSolver(circuit, device=cuda)
+    params = np.tile(circuit.stamps.params, (64, 1))
+    solver(params)
+    torch.cuda.synchronize(cuda)
+    for _ in range(3):
+        loops, kernels = band_solve_multi.launches, band_solve_multi.kernels
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            solver(params)
+            torch.cuda.synchronize(cuda)
+        traced = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and "block_thomas" in e.name]
+        counted = band_solve_multi.kernels - kernels
+        assert band_solve_multi.launches - loops == 1
+        if len(traced) == counted:
+            break
+    assert len(traced) == counted
+    assert any("block_thomas_subst" in e.name for e in traced)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("shape", [
+    (cs.GENERAL_BATCH, 16, 128, 1), (7, 2, 128, 4), (3, 16, 128, 3),
+    (5, 1, 128, 1)], ids=lambda s: "x".join(map(str, s)))
+def test_kept_elimination_and_substitution_bit_for_bit(cuda, shape, dtype,
+                                                       monkeypatch):
+    """``band_factor``'s X equals ``band_solve_multi``'s bit for bit (the
+    same launches; only S_t⁻¹'s address differs), and
+    ``block_thomas_subst`` on new right-hand sides equals a fresh
+    ``band_solve_multi`` on them bit for bit, within the f32 solve's own
+    error of the f64 answer, the held factors left as they were."""
+    # The lattice's shape keeps 4.4 GB in f64, past the default cap.
+    monkeypatch.setattr(block_thomas, "SCRATCH_BYTES_MAX", 16 << 30)
+    B, nb, kb, r = shape
+    gen = torch.Generator(device=cuda).manual_seed(26)
+    W, R = cs.random_block_band(B, nb, kb, r, dtype, gen)
+    R2 = torch.randn(R.shape, generator=gen, device=cuda, dtype=dtype)
+    X, f = band_factor(W, R)
+    assert f is not None
+    held = f.F.clone()
+    got = band_substitute(f, R2)
+    fresh = band_solve_multi(W, R2)
+    torch.cuda.synchronize(cuda)
+    assert torch.equal(X, band_solve_multi(W, R))
+    assert torch.equal(got, fresh)
+    assert torch.equal(f.F, held)
+    truth = band_thomas_solve(W.double(), R2.double())
+    err = cs.rel_diff(got.double().reshape(B, -1), truth.reshape(B, -1))
+    assert err <= cs.BAND_RTOL[dtype]
 
 
 # --- the f32 128×128 inverse (csrc/dense_tile.cuh, invert_block_f32) on every
