@@ -65,8 +65,9 @@ from nodal_tpu_torch.ops.sparse_schur import (
 from nodal_tpu_torch.utils import tracing
 from nodal_tpu_torch.utils.device import resolve_device
 
-#: Rows with more COO entries than this keep the scatter-add audit (the
-#: gather-fold pass reads ``width`` slots per output row).
+#: Rows with at most this many COO entries fold in one slot row each (the
+#: gather-fold pass reads ``width`` slots per output row); a wider row
+#: folds as a segment of the entries sorted by row.
 _RESID_FOLD_MAX_WIDTH = 16
 
 #: The default accuracy contract: node voltages within 1e-6 *of the f64
@@ -106,67 +107,95 @@ _METHODS = ("auto", "tridiag", "sband", "band", "block", "schur", "dense")
 logger = logging.getLogger(__name__)
 
 
-def _resid_gather_tables(stamps: StampTensors):
-    """Per-MNA-row gather lists over the COO stamp entries, or None when
-    some row is denser than ``_RESID_FOLD_MAX_WIDTH``.
+@dataclasses.dataclass(frozen=True)
+class _RowFold:
+    """COO entries folded into their rows in a fixed order, with no atomics.
 
-    Returns ``(entry_ids, x_cols, valid, rhs_ids, rhs_valid)`` — the first
-    three [n, width] (entry index into the raw stamp-value vector, the
-    entry's column as an index into x, 1.0/0.0 slot mask), the last two
-    [n, rhs_width] for the RHS.  Built vectorized (argsort + cumcount) and
-    cached on the StampTensors as numpy.
+    Narrow (``offsets`` None): ``ids`` [n, w], w at most
+    ``_RESID_FOLD_MAX_WIDTH``, are row i's entries (indices into the value
+    vector) and ``valid`` their 1.0/0.0 slot mask, summed by ``sum(-1)``.
+    Wide: ``ids`` [nnz] are the entries sorted by row, stably, and row i
+    their segment ``offsets[i]:offsets[i + 1]``, which
+    ``torch.segment_reduce`` sums left to right, one thread a row and
+    sample on the card.  Either way a row's sum depends neither on the
+    batch nor on the device's scheduling.
     """
-    cached = stamps.__dict__.get("_resid_gf", False)
-    if cached is not False:
+
+    ids: np.ndarray
+    valid: np.ndarray | None = None
+    offsets: np.ndarray | None = None
+
+
+def _row_fold(rows: np.ndarray, n: int) -> _RowFold:
+    """The :class:`_RowFold` of entries landing on ``rows`` [nnz]: narrow
+    when no row takes more than ``_RESID_FOLD_MAX_WIDTH``, else wide."""
+    nnz = len(rows)
+    counts = np.bincount(rows, minlength=n)
+    width = int(counts.max()) if nnz else 1
+    order = np.argsort(rows, kind="stable")
+    offsets = np.zeros(n, dtype=np.int64)
+    np.cumsum(counts[:-1], out=offsets[1:])
+    if width > _RESID_FOLD_MAX_WIDTH:
+        return _RowFold(order, offsets=np.append(offsets, nnz))
+    pos = np.arange(nnz, dtype=np.int64) - offsets[rows[order]]
+    ids = np.zeros((n, max(width, 1)), dtype=np.int32)
+    valid = np.zeros((n, max(width, 1)), dtype=np.float64)
+    ids[rows[order], pos] = order
+    valid[rows[order], pos] = 1.0
+    return _RowFold(ids, valid)
+
+
+def _resid_gather_tables(stamps: StampTensors):
+    """The residual's fold tables ``(g_fold, x_cols, rhs_fold)``: the
+    :class:`_RowFold` of the G entries over their rows, each slot's column
+    as an index into x, and the fold of the RHS entries.  Built vectorized
+    (argsort + cumcount) and cached on the StampTensors as numpy.
+    """
+    cached = stamps.__dict__.get("_resid_gf")
+    if cached is not None:
         return cached
-
-    def fold(rows, nnz):
-        counts = np.bincount(rows, minlength=stamps.n)
-        width = int(counts.max()) if nnz else 1
-        if width > _RESID_FOLD_MAX_WIDTH:
-            return None
-        order = np.argsort(rows, kind="stable")
-        offsets = np.zeros(stamps.n, dtype=np.int64)
-        np.cumsum(counts[:-1], out=offsets[1:])
-        pos = np.arange(nnz, dtype=np.int64) - offsets[rows[order]]
-        ids = np.zeros((stamps.n, max(width, 1)), dtype=np.int32)
-        valid = np.zeros((stamps.n, max(width, 1)), dtype=np.float64)
-        ids[rows[order], pos] = order
-        valid[rows[order], pos] = 1.0
-        return ids, valid
-
-    out = None
-    g = fold(stamps.g_rows.astype(np.int64), len(stamps.g_rows))
-    r = fold(stamps.rhs_rows.astype(np.int64), len(stamps.rhs_rows))
-    if g is not None and r is not None:
-        entry_ids, valid = g
-        rhs_ids, rhs_valid = r
-        x_cols = np.zeros_like(entry_ids)
-        x_cols[valid > 0] = stamps.g_cols[
-            entry_ids[valid > 0].astype(np.int64)]
-        out = (entry_ids, x_cols, valid, rhs_ids, rhs_valid)
+    g = _row_fold(stamps.g_rows.astype(np.int64), stamps.n)
+    if g.offsets is None:
+        x_cols = np.zeros_like(g.ids)
+        x_cols[g.valid > 0] = stamps.g_cols[
+            g.ids[g.valid > 0].astype(np.int64)]
+    else:
+        x_cols = stamps.g_cols[g.ids]
+    out = (g, x_cols, _row_fold(stamps.rhs_rows.astype(np.int64), stamps.n))
     stamps.__dict__["_resid_gf"] = out
     return out
 
 
+def _fold_rows(stamps: StampTensors, key: str, fold: _RowFold,
+               vals: torch.Tensor, xs: torch.Tensor | None = None,
+               cols: np.ndarray | None = None) -> torch.Tensor:
+    """[B, n]: each row's entries of ``vals`` [B, nnz], each times
+    ``xs[:, col]`` when ``xs`` is given, summed as ``fold`` orders them;
+    the device tables are cached on the stamps under ``key``."""
+    dev = vals.device
+    ids = device_table(stamps, f"{key}_ids", fold.ids, dev, torch.long)
+    if xs is not None:
+        cols = device_table(stamps, f"{key}_cols", cols, dev, torch.long)
+    if fold.offsets is None:
+        w = device_table(stamps, f"{key}_valid", fold.valid, dev, vals.dtype)
+        t = vals[:, ids] * w
+        return (t if xs is None else t * xs[:, cols]).sum(-1)
+    t = vals[:, ids]
+    if xs is not None:
+        t.mul_(xs[:, cols])
+    offsets = device_table(stamps, f"{key}_offsets", fold.offsets, dev,
+                           torch.long)
+    # unsafe: no check of the offsets, which would read them on the host.
+    return torch.segment_reduce(t, "sum", offsets=offsets.expand(len(t), -1),
+                                axis=1, unsafe=True)
+
+
 def _coo_apply(stamps: StampTensors, g_vals: torch.Tensor,
                xs: torch.Tensor) -> torch.Tensor:
-    """``y = G·x`` straight from the COO stamp entries — no matrix built.
-
-    Folds each row's few entries with dense gathers when rows are narrow
-    (the common case); dense rows fall back to a scatter-add.
-    """
-    dev = xs.device
-    gf = _resid_gather_tables(stamps)
-    if gf is not None:
-        entry_ids, x_cols, valid, _, _ = gf
-        ids = device_table(stamps, "resid_ids", entry_ids, dev, torch.long)
-        cols = device_table(stamps, "resid_cols", x_cols, dev, torch.long)
-        w = device_table(stamps, "resid_valid", valid, dev, g_vals.dtype)
-        return (g_vals[:, ids] * w * xs[:, cols]).sum(-1)
-    rows = device_table(stamps, "g_rows", stamps.g_rows, dev, torch.long)
-    cols = device_table(stamps, "g_cols", stamps.g_cols, dev, torch.long)
-    return torch.zeros_like(xs).index_add_(1, rows, g_vals * xs[:, cols])
+    """``y = G·x`` straight from the COO stamp entries — no matrix built —
+    as a fixed-order fold of each row's entries (:class:`_RowFold`)."""
+    g, x_cols, _ = _resid_gather_tables(stamps)
+    return _fold_rows(stamps, "resid", g, g_vals, xs, x_cols)
 
 
 def _coo_rhs_vec(stamps: StampTensors, rhs_vals: torch.Tensor,
@@ -175,16 +204,8 @@ def _coo_rhs_vec(stamps: StampTensors, rhs_vals: torch.Tensor,
     fixes the [B, n] output shape, dtype and device."""
     if not len(stamps.rhs_rows):
         return torch.zeros_like(like)
-    dev = like.device
-    gf = _resid_gather_tables(stamps)
-    if gf is not None:
-        _, _, _, rhs_ids, rhs_valid = gf
-        ids = device_table(stamps, "resid_rhs_ids", rhs_ids, dev, torch.long)
-        w = device_table(stamps, "resid_rhs_valid", rhs_valid, dev,
-                         rhs_vals.dtype)
-        return (rhs_vals[:, ids] * w).sum(-1)
-    rows = device_table(stamps, "rhs_rows", stamps.rhs_rows, dev, torch.long)
-    return torch.zeros_like(like).index_add_(1, rows, rhs_vals)
+    _, _, rhs = _resid_gather_tables(stamps)
+    return _fold_rows(stamps, "resid_rhs", rhs, rhs_vals)
 
 
 def _coo_residuals(stamps: StampTensors, params_batch: torch.Tensor,
@@ -584,14 +605,17 @@ def _block_operator(stamps: StampTensors, dtype) -> _Operator:
     once; each solve is :func:`lu_solve_factored` on the factor, then the
     first n unknowns.  The CUDA kernel on the card (f64 runs its f64
     instantiation), the plain ``blocked_factor`` /
-    ``blocked_solve_factored`` on the CPU.
+    ``blocked_solve_factored`` on the CPU.  The assembly is a
+    ``dense.assemble`` span, counted by ``dense_assemblies``.
     """
     n = stamps.n
     n_pad = -(-n // _BLOCK) * _BLOCK
 
     def prepare(params_batch):
-        G, b = assemble_dense(stamps, params_batch, dtype=dtype,
-                              pad_to=n_pad)
+        with tracing.span("dense.assemble", params_batch):
+            G, b = assemble_dense(stamps, params_batch, dtype=dtype,
+                                  pad_to=n_pad)
+            tracing.count("dense_assemblies")
         F = lu_factor(G)
         del G  # on the card F is G, factored in place
 

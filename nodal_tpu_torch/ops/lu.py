@@ -13,6 +13,12 @@ factor serves several defect-correction solves.  CPU tensors take the
 plain version; CUDA tensors launch the kernel or raise: there is no
 fallback.  The kernel serves every n_pad, any batch and any number of
 right-hand sides, in float32 and float64.
+
+Each factorization is an ``lu.factor`` span and each solve an ``lu.solve``
+span (:mod:`nodal_tpu_torch.utils.tracing`), device-timed on CUDA; the
+counters ``lu_factorizations`` and ``lu_substitutions`` count them, and
+``lu_kernels`` every kernel launched (:func:`factor_launches` a
+factorization, :func:`solve_launches` a solve).
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import torch
 from nodal_tpu_torch.ops.block_lu import (_BLOCK, blocked_factor,
                                           blocked_solve,
                                           blocked_solve_factored)
+from nodal_tpu_torch.utils import tracing
 
 #: Panel width; must match ``kBlock`` in ``csrc/block_lu.cu``.
 BLOCK = _BLOCK
@@ -50,6 +57,13 @@ def factor_launches(n: int) -> int:
         else:
             launches, t = launches + 7, t + 2
     return launches
+
+
+def solve_launches(n: int) -> int:
+    """Kernel launches of one solve at n_pad = n (``lu_solve`` in
+    ``csrc/dense_tile.cuh``): two products a panel forward but the last,
+    two a panel backward."""
+    return 4 * (n // BLOCK) - 2
 
 
 def _check_matrix(G: torch.Tensor, fn: str) -> None:
@@ -94,10 +108,17 @@ def lu_factor(G: torch.Tensor):
     the Schur-updated column panels below them and row panels right of
     them.  Each call adds one to ``lu_factor.launches``.  CPU tensors: the
     plain :func:`blocked_factor`'s list of panels; G is left as it was.
+    Either way an ``lu.factor`` span.
     """
     _check_matrix(G, "lu_factor")
-    if G.device.type == "cpu":
-        return blocked_factor(G)
+    with tracing.span("lu.factor", G):
+        tracing.count("lu_factorizations")
+        if G.device.type == "cpu":
+            return blocked_factor(G)
+        return _factor_cuda(G)
+
+
+def _factor_cuda(G: torch.Tensor) -> torch.Tensor:
     B, n, _ = G.shape
     if B == 0:
         return G
@@ -113,6 +134,7 @@ def lu_factor(G: torch.Tensor):
         err = fn(G.data_ptr(), P.data_ptr(), B, n, stream)
     _raise_on(err, "factorization", tuple(G.shape), G.dtype)
     lu_factor.launches += 1
+    tracing.count("lu_kernels", factor_launches(n))
     return G
 
 
@@ -126,18 +148,27 @@ def lu_solve_factored(F, R: torch.Tensor) -> torch.Tensor:
     CUDA: the kernel's two sweeps; each call adds one to
     ``lu_solve_factored.launches`` and records ``(B, n_pad, r)`` in
     ``lu_solve_factored.last_shape``.  CPU: the plain
-    :func:`blocked_solve_factored` on the panel list.
+    :func:`blocked_solve_factored` on the panel list.  Either way an
+    ``lu.solve`` span.
     """
     if not isinstance(F, torch.Tensor):
         if R.device.type != "cpu":
             raise ValueError("a CPU factor (panel list) takes CPU right-hand "
                              f"sides, not {R.device}")
-        return blocked_solve_factored(F, R)
+        with tracing.span("lu.solve", R):
+            tracing.count("lu_substitutions")
+            return blocked_solve_factored(F, R)
     _check_matrix(F, "lu_solve_factored")
     _check_rhs(F, R, "lu_solve_factored")
     if F.device.type == "cpu":
         raise ValueError("lu_solve_factored: a packed factor lives on CUDA; "
                          "on the CPU pass lu_factor's panel list")
+    with tracing.span("lu.solve", F):
+        tracing.count("lu_substitutions")
+        return _solve_cuda(F, R)
+
+
+def _solve_cuda(F: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
     B, n, _ = F.shape
     r = R.shape[2]
     X = R.contiguous().clone()
@@ -156,6 +187,7 @@ def lu_solve_factored(F, R: torch.Tensor) -> torch.Tensor:
     _raise_on(err, "solve", (B, n, r), F.dtype)
     lu_solve_factored.launches += 1
     lu_solve_factored.last_shape = (B, n, r)
+    tracing.count("lu_kernels", solve_launches(n))
     return X
 
 

@@ -228,13 +228,13 @@ def test_prepared_inner_assembles_once_a_run(mesh_sweep):
 
 def test_dense_row_audit_matches_reference():
     """A node with many parallel resistors keeps the chain tridiagonal but
-    puts more COO entries on its row than the gather-fold audit takes, so
-    the contract layer and the audit use the scatter-add form."""
+    puts more COO entries on its row than the one-slot-row fold takes, so
+    the contract layer and the audit fold the rows sorted, left to right."""
     rows = ladder_rows(8) + [[f"rx{k}", "R", str(1.0 + k), "n0", "n1"]
                              for k in range(12)]
     jc = JCircuit(JNetlist.from_rows(rows))
     stamps = stamps_from_reference(jc.stamps)
-    assert tbatch._resid_gather_tables(stamps) is None
+    assert tbatch._resid_gather_tables(stamps)[0].offsets is not None
     rng = np.random.default_rng(2)
     base = jc.stamps.params
     params = (base * (1.0 + 0.05 * rng.standard_normal((4, len(base))))

@@ -339,3 +339,70 @@ def test_f32_inverse_of_lattice_schur_blocks(cuda):
     err = ((got.double() - want).abs().amax((1, 2))
            / want.abs().amax((1, 2)))
     assert bool((err <= cs.LU_KAPPA_FACTOR * kappa * eps).all())
+
+
+def test_lu_kernels_counted_a_randnet_call(cuda):
+    """A ``block``-tier sweep call of chip_smoke.py's random network (999
+    unknowns, n_pad 1024) at B 64: one ``dense.assemble``, one
+    factorization and two substitutions, each a device-timed span, and
+    ``lu_kernels`` = ``factor_launches(1024)`` + 2 ``solve_launches(1024)``
+    = 88, as many ``block_lu`` kernels as the profiler traces (the
+    benchmark's condition for a whole trace; up to three calls traced,
+    since the profiler drops events at times)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    circuit = Circuit(Netlist.from_rows(cs.randnet_rows()))
+    solver = BatchedSolver(circuit, device=cuda)
+    assert solver.method == "block"
+    params = np.tile(circuit.stamps.params, (64, 1))
+    solver(params)  # builds the library outside the counted call
+    tracing.enable()
+    try:
+        solver(params)
+        (call,) = tracing.recent(1)
+    finally:
+        tracing.disable()
+    c = call.counters
+    assert (c["dense_assemblies"], c["lu_factorizations"],
+            c["lu_substitutions"]) == (1, 1, 2)
+    want = lu.factor_launches(1024) + 2 * lu.solve_launches(1024)
+    assert c["lu_kernels"] == want == 88
+    spans = (call.find("dense.assemble") + call.find("lu.factor")
+             + call.find("lu.solve"))
+    assert len(spans) == 4 and all(s.device_ms > 0 for s in spans)
+    torch.cuda.synchronize(cuda)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            solver(params)
+            torch.cuda.synchronize(cuda)
+        traced = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and "block_lu" in e.name]
+        if len(traced) == want:
+            break
+    assert len(traced) == want
+
+
+def test_randnet_answers_bit_for_bit(cuda):
+    """The random network's ``"auto"`` answers at B 256 are the same bits on
+    a second call and with the batch split in two: its residual's wide rows
+    fold in a fixed order, with no atomics, as the f64 COO apply alone
+    shows too."""
+    circuit = Circuit(Netlist.from_rows(cs.randnet_rows()))
+    stamps = circuit.stamps
+    solver = BatchedSolver(circuit, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(28)
+    base = torch.as_tensor(stamps.params, dtype=torch.float32, device=cuda)
+    p = base * (1 + 0.05 * torch.randn((256, len(base)), generator=gen,
+                                       device=cuda))
+    x = solver(p)
+    assert torch.equal(solver(p), x)
+    assert torch.equal(torch.cat([solver(p[:128]), solver(p[128:])]), x)
+    g_vals, _ = tbatch.stamp_values(stamps, p.to(torch.float64))
+    y = tbatch._coo_apply(stamps, g_vals, x)
+    assert tbatch._resid_gather_tables(stamps)[0].offsets is not None
+    assert torch.equal(tbatch._coo_apply(stamps, g_vals, x), y)
+    assert torch.equal(torch.cat([
+        tbatch._coo_apply(stamps, g_vals[:100], x[:100]),
+        tbatch._coo_apply(stamps, g_vals[100:], x[100:])]), y)

@@ -13,6 +13,7 @@ torch = pytest.importorskip("torch")
 
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
+from chip_smoke import randnet_rows  # noqa: E402
 from nodal_tpu_torch import BatchedSolver, Circuit, Netlist  # noqa: E402
 from nodal_tpu_torch.ops.block_thomas import band_solve_multi  # noqa: E402
 from nodal_tpu_torch.ops.grid import grid_solve  # noqa: E402
@@ -192,6 +193,46 @@ def test_band_call_untraced_records_nothing(lattice):
     last = _last_id()
     solver(params)
     assert _newer(last) == []
+
+
+@pytest.fixture(scope="module")
+def randnet():
+    """A 300-node random resistor network (chip_smoke.py's class): the
+    ``block`` tier."""
+    circuit = Circuit(Netlist.from_rows(randnet_rows(300, 1200)))
+    solver = BatchedSolver(circuit, device="cpu")
+    assert solver.method == "block" and solver.refine == "auto"
+    return solver, np.tile(circuit.stamps.params, (2, 1))
+
+
+def test_block_call_records_lu_spans_and_counters(randnet):
+    """A ``block``-tier sweep call: one ``dense.assemble`` and one
+    ``lu.factor`` inside the first ``tier.solve``, one ``lu.solve`` in each
+    ``tier.solve`` (the raw solve and the defect pass); the counters 1
+    assembly, 1 factorization and 2 substitutions.  On the CPU the plain
+    blocked LU runs: no kernel is counted and no span carries a device
+    time."""
+    solver, params = randnet
+    tracing.enable()
+    last = _last_id()
+    solver(params)
+    (call,) = _newer(last)
+    c = call.counters
+    assert c["contract_passes"] == 1
+    assert (c["dense_assemblies"], c["lu_factorizations"],
+            c["lu_substitutions"]) == (1, 1, 2)
+    assert "lu_kernels" not in c
+    tiers = [call.spans.index(s) for s in call.find("tier.solve")]
+    assert len(tiers) == 2
+    (assemble,) = call.find("dense.assemble")
+    (factor,) = call.find("lu.factor")
+    solves = call.find("lu.solve")
+    assert assemble.parent == factor.parent == tiers[0]
+    assert [s.parent for s in solves] == tiers
+    assert assemble.end_ns <= factor.start_ns <= factor.end_ns \
+        <= solves[0].start_ns
+    for s in [assemble, factor] + solves:
+        assert s.device_ms is None
 
 
 def test_rescued_sample_is_counted():
